@@ -19,6 +19,8 @@ import shutil
 import subprocess
 import time
 
+import torch
+
 _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
@@ -53,11 +55,34 @@ def _declare(lib):
     return lib
 
 
+# The current CUDA stream of a device index as the integer handle a launch
+# takes, without building a torch.cuda.Stream object. A torch built without
+# CUDA lacks the getter; load() raises there, so no launch reaches it.
+raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def launch(dev: torch.device, fn, *args) -> int:
+    """Call the bound C function `fn(*args, stream)` on the current stream
+    of `dev`, under a device guard only when `dev` is not the current
+    device. Returns the CUDA error code."""
+    cur = torch.cuda.current_device()
+    index = cur if dev.index is None else dev.index
+    if index == cur:
+        return fn(*args, raw_stream(index))
+    with torch.cuda.device(index):
+        return fn(*args, raw_stream(index))
+
+
 def load():
     """The kernels' shared library, built on first use."""
     global _lib, build_seconds, build_log
     if _lib is not None:
         return _lib
+    if raw_stream is None:
+        raise RuntimeError(
+            "this torch build has no CUDA support: the CUDA kernels cannot be "
+            "launched"
+        )
     sources = sorted(_CSRC.glob("*.cu"))
     h = hashlib.sha256()
     for s in sources:

@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from . import _build
+
 SUB = 16       # most stripes per Q tile: candidates kept per P row
 P_TILE = 256   # P rows per tile (the last one may be partial)
 
@@ -83,14 +85,37 @@ def dense_gate_reference(p_feat, q_feat, p_cell, q_cell, rp, rq, alpha, tol,
     return row_best, counts
 
 
-def _check(name, t, dtype, shape):
-    if t.dtype != dtype:
-        raise TypeError(f"dense_gate: {name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"dense_gate: {name} must have shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"dense_gate: {name} must be contiguous")
+_kernel = None   # the bound C function, resolved at the first CUDA call
+
+
+def _check_kernel_args(dev, p_feat, q_feat, p_cell, q_cell, rp, rq, alpha,
+                       p_count, q_count, live, q_tile):
+    """Raise on what the kernel does not take: every tensor on `dev`,
+    contiguous, of its dtype and shape. One pass over the arguments; only a
+    failure goes through them again to name the offender."""
+    b_n, _, p = p_feat.shape
+    q = q_feat.shape[2]
+    f32, i32 = torch.float32, torch.int32
+    args = [("p_feat", p_feat, f32, (b_n, 8, p)), ("q_feat", q_feat, f32, (b_n, 8, q)),
+            ("p_cell", p_cell, i32, (b_n, p)), ("q_cell", q_cell, i32, (b_n, q)),
+            ("rp", rp, i32, (b_n, p)), ("rq", rq, i32, (b_n, q)),
+            ("alpha", alpha, f32, (b_n,)), ("p_count", p_count, i32, (b_n,)),
+            ("q_count", q_count, i32, (b_n,))]
+    if live is not None:
+        args.append(("live", live, i32, (b_n, -(-p // P_TILE), q // q_tile)))
+    if all(t.dtype == dtype and t.shape == shape and t.device == dev
+           and t.is_contiguous() for _name, t, dtype, shape in args):
+        return
+    for name, t, dtype, shape in args:
+        if t.device != dev:
+            raise ValueError(f"dense_gate: {name} is on {t.device}, not {dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"dense_gate: {name} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"dense_gate: {name} must have shape {tuple(shape)}, "
+                             f"got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"dense_gate: {name} must be contiguous")
 
 
 def dense_gate(p_feat, q_feat, p_cell, q_cell, rp, rq, alpha, tol,
@@ -111,6 +136,7 @@ def dense_gate(p_feat, q_feat, p_cell, q_cell, rp, rq, alpha, tol,
 
     CUDA tensors launch the kernel (built at first use); CPU tensors take
     the plain version. Nothing else is accepted."""
+    global _kernel
     dev = p_feat.device
     b_n, _, p = p_feat.shape
     q = q_feat.shape[2]
@@ -129,38 +155,30 @@ def dense_gate(p_feat, q_feat, p_cell, q_cell, rp, rq, alpha, tol,
         )
     if dev.type != "cuda":
         raise ValueError(f"dense_gate: unsupported device {dev}")
-    f32, i32 = torch.float32, torch.int32
-    args = [("p_feat", p_feat, f32, (b_n, 8, p)), ("q_feat", q_feat, f32, (b_n, 8, q)),
-            ("p_cell", p_cell, i32, (b_n, p)), ("q_cell", q_cell, i32, (b_n, q)),
-            ("rp", rp, i32, (b_n, p)), ("rq", rq, i32, (b_n, q)),
-            ("alpha", alpha, f32, (b_n,)), ("p_count", p_count, i32, (b_n,)),
-            ("q_count", q_count, i32, (b_n,))]
-    if live is not None:
-        args.append(("live", live, i32, (b_n, -(-p // P_TILE), q // q_tile)))
-    for name, t, dtype, shape in args:
-        if t.device != dev:
-            raise ValueError(f"dense_gate: {name} is on {t.device}, not {dev}")
-        _check(name, t, dtype, shape)
+    _check_kernel_args(dev, p_feat, q_feat, p_cell, q_cell, rp, rq, alpha,
+                       p_count, q_count, live, q_tile)
     if not (0 <= rand_mask < 2 ** 31 and 0 <= marker < 2 ** 31):
         raise ValueError("dense_gate: rand_mask and marker must be int32 >= 0")
+    if b_n > 65535:
+        raise ValueError(f"dense_gate: at most 65535 bases a launch, got {b_n}")
 
-    from . import _build
-
-    lib = _build.load()
-    row_best = torch.zeros((b_n, p, n_sub), dtype=i32, device=dev)
-    counts = torch.zeros((b_n, p), dtype=i32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mm_dense_gate(
-            p_feat.data_ptr(), q_feat.data_ptr(), p_cell.data_ptr(),
-            q_cell.data_ptr(), rp.data_ptr(), rq.data_ptr(), alpha.data_ptr(),
-            p_count.data_ptr(), q_count.data_ptr(),
-            None if live is None else live.data_ptr(),
-            row_best.data_ptr(), counts.data_ptr(),
-            b_n, p, q, q_tile, n_sub, float(tol), float(dist_thresh),
-            int(rand_mask), int(marker), int(bool(skip_dist)),
-            int(bool(check_cos)), stream,
-        )
+    if _kernel is None:
+        _kernel = _build.load().mm_dense_gate
+    # the kernel writes every element of both outputs (zero for rows of
+    # dead or skipped tiles)
+    row_best = p_cell.new_empty((b_n, p, n_sub))
+    counts = p_cell.new_empty((b_n, p))
+    err = _build.launch(
+        dev, _kernel,
+        p_feat.data_ptr(), q_feat.data_ptr(), p_cell.data_ptr(),
+        q_cell.data_ptr(), rp.data_ptr(), rq.data_ptr(), alpha.data_ptr(),
+        p_count.data_ptr(), q_count.data_ptr(),
+        None if live is None else live.data_ptr(),
+        row_best.data_ptr(), counts.data_ptr(),
+        b_n, p, q, q_tile, n_sub, float(tol), float(dist_thresh),
+        int(rand_mask), int(marker), int(bool(skip_dist)),
+        int(bool(check_cos)),
+    )
     if err != 0:
         raise RuntimeError(f"dense_gate: CUDA kernel launch failed (error {err})")
     dense_gate.launches += 1

@@ -13,10 +13,15 @@ from __future__ import annotations
 
 import torch
 
+from . import _build
+
 
 def row_gather_reference(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Plain torch version: table[idx] ([..., C])."""
     return table[idx.long()]
+
+
+_kernel = None   # the bound C function, resolved at the first CUDA call
 
 
 def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -25,35 +30,38 @@ def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
     CUDA tensors launch the kernel (built at first use); CPU tensors take
     the plain version. Nothing else is accepted."""
-    if table.dim() != 2 or table.dtype != torch.float32 or not table.is_contiguous():
-        raise ValueError(
-            f"row_gather: table must be a contiguous 2-D float32 tensor, got "
-            f"{tuple(table.shape)} {table.dtype}")
-    if idx.dtype not in (torch.int32, torch.int64):
-        raise TypeError(f"row_gather: idx must be int32 or int64, got {idx.dtype}")
+    global _kernel
     dev = table.device
-    if idx.device != dev:
-        raise ValueError(f"row_gather: idx is on {idx.device}, the table on {dev}")
+    wide = idx.dtype == torch.int64
+    # one pass; the slow path only names the offender
+    if not (table.dtype == torch.float32 and table.dim() == 2
+            and table.is_contiguous() and (wide or idx.dtype == torch.int32)
+            and idx.device == dev and dev.type in ("cpu", "cuda")):
+        if table.dim() != 2 or table.dtype != torch.float32 or not table.is_contiguous():
+            raise ValueError(
+                f"row_gather: table must be a contiguous 2-D float32 tensor, got "
+                f"{tuple(table.shape)} {table.dtype}")
+        if not (wide or idx.dtype == torch.int32):
+            raise TypeError(f"row_gather: idx must be int32 or int64, got {idx.dtype}")
+        if idx.device != dev:
+            raise ValueError(f"row_gather: idx is on {idx.device}, the table on {dev}")
+        raise ValueError(f"row_gather: unsupported device {dev}")
+    rows, c = table.shape
+    n_idx = idx.numel()
+    if rows == 0 and n_idx > 0:
+        raise ValueError("row_gather: gather from an empty table")
     if dev.type == "cpu":
         return row_gather_reference(table, idx)
-    if dev.type != "cuda":
-        raise ValueError(f"row_gather: unsupported device {dev}")
-    c = table.shape[1]
-    out = torch.empty(tuple(idx.shape) + (c,), dtype=torch.float32, device=dev)
-    if out.numel() == 0:
+    out = table.new_empty((*idx.shape, c))
+    if n_idx == 0 or c == 0:
         return out
-    if table.shape[0] == 0:
-        raise ValueError("row_gather: gather from an empty table")
-    idx = idx.contiguous()
+    if not idx.is_contiguous():
+        idx = idx.contiguous()
 
-    from . import _build
-
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mm_row_gather(table.data_ptr(), idx.data_ptr(),
-                                int(idx.dtype == torch.int64), out.data_ptr(),
-                                idx.numel(), c, stream)
+    if _kernel is None:
+        _kernel = _build.load().mm_row_gather
+    err = _build.launch(dev, _kernel, table.data_ptr(), idx.data_ptr(), int(wide),
+                        out.data_ptr(), n_idx, c)
     if err != 0:
         raise RuntimeError(f"row_gather: CUDA kernel launch failed (error {err})")
     row_gather.launches += 1

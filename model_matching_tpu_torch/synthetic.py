@@ -78,6 +78,30 @@ def synthetic_arrays(num_model=320, num_scene=1024, seed=0):
     return mpos, mnrm, spos, snrm, sprob, gt
 
 
+# cell distributions that can break a scan of the dense gate that buckets
+# its columns by a hash of the cell id (ops/dense_gate.py)
+GATE_CELL_CASES = ("one_cell", "all_distinct", "above_low_6_bits",
+                   "above_low_16_bits")
+
+
+def gate_cells(kind: str, rng: np.random.Generator, n: int) -> np.ndarray:
+    """[n] int32 cell ids in [0, 2^30) of one of GATE_CELL_CASES: the same
+    cell on every lane; every lane a cell of its own (a permutation of
+    0..n-1); ids that differ only above their low 6 bits; ids that differ
+    only above their low 16 bits (so any hash of low bits collides)."""
+    if kind == "one_cell":
+        c = np.full(n, 5)
+    elif kind == "all_distinct":
+        c = rng.permutation(n)
+    elif kind == "above_low_6_bits":
+        c = (rng.integers(0, 12, n) << 6) | 0x2A
+    elif kind == "above_low_16_bits":
+        c = (rng.integers(0, 12, n) << 16) | 0x1234
+    else:
+        raise ValueError(f"unknown cell distribution {kind!r}")
+    return c.astype(np.int32)
+
+
 def synthetic_setup(num_model=320, num_scene=1024, num_bases=16,
                     max_pairs=512, max_congruent=32, seed=0, device="cuda"):
     """(ModelPack, ScenePack, MatchConfig) with the packs on `device` (the

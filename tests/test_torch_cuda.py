@@ -20,7 +20,7 @@ from model_matching_tpu_torch import congruent
 from model_matching_tpu_torch.estimator import StocsEstimator
 from model_matching_tpu_torch.ops import dense_gate as tdg
 from model_matching_tpu_torch.ops import row_gather as trg
-from model_matching_tpu_torch.synthetic import synthetic_setup
+from model_matching_tpu_torch.synthetic import GATE_CELL_CASES, gate_cells, synthetic_setup
 
 MASK = 0x7FFFFFFF & ~((1 << 15) - 1)
 MARKER = 1 << 14
@@ -33,21 +33,33 @@ def _card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("p,q,q_tile,n_sub,check_cos", [
-    (512, 1024, 512, 16, True),
-    # a partial P tile, 520-column Q tiles (a partial sub-tile), 8 stripes
-    (600, 1040, 520, 8, True),
+@pytest.mark.parametrize("p,q,q_tile,n_sub,check_cos,cells", [
+    pytest.param(512, 1024, 512, 16, True, None, id="512-1024-512-16-True"),
+    # a partial P tile, 520-column Q tiles, 8 stripes
+    pytest.param(600, 1040, 520, 8, True, None, id="600-1040-520-8-True"),
     # the cone test off (a negative cos tolerance)
-    (600, 1040, 520, 8, False),
+    pytest.param(600, 1040, 520, 8, False, None, id="600-1040-520-8-False"),
+    # cell distributions that could break the kernel's bucketed scan, on Q
+    # tiles of 2,600 columns (two slabs; 256 does not divide them), 8 stripes
+    *[pytest.param(700, 5200, 2600, 8, True, kind, id=f"cells-{kind}")
+      for kind in GATE_CELL_CASES],
 ])
-def test_kernel_matches_plain_on_cuda(p, q, q_tile, n_sub, check_cos):
+def test_kernel_matches_plain_on_cuda(p, q, q_tile, n_sub, check_cos, cells):
     dev = _card()
     g = torch.Generator().manual_seed(1)
     b = 2
     pf = torch.randn(b, 8, p, generator=g) * 0.05
     qf = torch.randn(b, 8, q, generator=g) * 0.05
-    pc = torch.randint(0, 4, (b, p), generator=g, dtype=torch.int32)
-    qc = torch.randint(0, 4, (b, q), generator=g, dtype=torch.int32)
+    if cells is None:
+        pc = torch.randint(0, 4, (b, p), generator=g, dtype=torch.int32)
+        qc = torch.randint(0, 4, (b, q), generator=g, dtype=torch.int32)
+    else:
+        rng = np.random.default_rng(2)
+        pc = torch.from_numpy(np.stack([gate_cells(cells, rng, p) for _ in range(b)]))
+        qc = torch.from_numpy(np.stack([gate_cells(cells, rng, q) for _ in range(b)]))
+    # the valid Q lanes of the first base end inside a slab of the last tile
+    q_valid = q - q_tile // 3
+    qc[0, q_valid:] = -2
     rp = torch.randint(-2**31, 2**31 - 1, (b, p), generator=g).to(torch.int32)
     rq = torch.randint(-2**31, 2**31 - 1, (b, q), generator=g).to(torch.int32)
     alpha = torch.rand(b, generator=g)
@@ -57,7 +69,7 @@ def test_kernel_matches_plain_on_cuda(p, q, q_tile, n_sub, check_cos):
     for skip in (False, True):
         kw = dict(q_tile=q_tile, skip_dist=skip,
                   p_count=torch.tensor([p, 300], dtype=torch.int32, device=dev),
-                  q_count=torch.tensor([q, 1], dtype=torch.int32, device=dev),
+                  q_count=torch.tensor([q_valid, 1], dtype=torch.int32, device=dev),
                   live=live.to(dev), n_sub=n_sub, check_cos=check_cos)
         before = tdg.dense_gate.launches
         got = tdg.dense_gate(*args, 2.0, 0.01, MASK, MARKER, **kw)

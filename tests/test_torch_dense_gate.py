@@ -1,10 +1,13 @@
 """The dense gate's plain version against the JAX package's Pallas kernel
 (interpret mode) on the cases of tests/test_pallas_congruent.py: the
 cross-Q-tile merge, the dynamic grid bounded by the valid-lane counts, the
-skipped distance test and the banded live mask. Integer outputs are
-compared for equality. Also: the wrapper takes the plain version for CPU
-tensors only (and then launches nothing). The CUDA kernel is held against
-the plain version on a card in tests/test_torch_cuda.py."""
+skipped distance test and the banded live mask, and on the cell
+distributions that could break a kernel that buckets its columns by a hash
+of the cell id (synthetic.GATE_CELL_CASES). Integer outputs are compared
+for equality. Also: the wrapper takes the plain version for CPU tensors
+only (and then launches and builds nothing), and its argument check
+rejects what the kernel does not take. The CUDA kernel is held against the
+plain version on a card in tests/test_torch_cuda.py."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -12,7 +15,9 @@ import pytest
 import torch
 
 from model_matching_tpu.ops.pallas_congruent import dense_gate as jgate
+from model_matching_tpu_torch.ops import _build
 from model_matching_tpu_torch.ops import dense_gate as tdg
+from model_matching_tpu_torch.synthetic import GATE_CELL_CASES, gate_cells
 
 P_TILE = 256
 MASK = 0x7FFFFFFF & ~((1 << 15) - 1)
@@ -30,6 +35,17 @@ def _feats(rng, n, count, tag):
     return f
 
 
+def _feats_of_cells(rng, cells, count, tag):
+    """JAX-layout features [16, n] for given int32 cell ids: the id split
+    into its 16-bit halves (rows 7 and 8), invalid lanes tagged in both."""
+    n = cells.shape[0]
+    f = _feats(rng, n, count, tag)
+    ok = np.arange(n) < count
+    f[7] = np.where(ok, cells & 0xFFFF, tag)
+    f[8] = np.where(ok, cells >> 16, tag)
+    return f
+
+
 def _port_layout(f):
     """JAX features -> the port's [1, 8, N] features and [1, N] cell ids."""
     feat = np.concatenate([f[0:7], np.zeros((1, f.shape[1]), np.float32)])
@@ -38,7 +54,10 @@ def _port_layout(f):
 
 
 def _both(pf, qf, rp, rq, q_tile, p_count, q_count, skip_dist, live=None,
-          alpha=0.1, tol=0.5, thr=0.01):
+          alpha=0.1, tol=0.5, thr=0.01, n_sub=16):
+    """The JAX kernel (16 stripes) and the port on the same inputs; with
+    n_sub < 16 the JAX kernel's stripes are merged in groups of 16 / n_sub,
+    which are the port's wider stripes."""
     p, q = pf.shape[1], qf.shape[1]
     jkw = dict(q_tile=q_tile, p_tile=P_TILE, interpret=True, skip_dist=skip_dist,
                p_count=None if p_count is None else jnp.int32(p_count),
@@ -56,8 +75,10 @@ def _both(pf, qf, rp, rq, q_tile, p_count, q_count, skip_dist, live=None,
         p_count=torch.tensor([p if p_count is None else p_count], dtype=torch.int32),
         q_count=torch.tensor([q if q_count is None else q_count], dtype=torch.int32),
         live=None if live is None else torch.from_numpy(live[None].copy()),
+        n_sub=n_sub,
     )
-    np.testing.assert_array_equal(np.asarray(jrb), trb[0].numpy())
+    jrb = np.asarray(jrb).reshape(p, n_sub, 16 // n_sub).max(-1)
+    np.testing.assert_array_equal(jrb, trb[0].numpy())
     np.testing.assert_array_equal(np.asarray(jcnt), tcnt[0].numpy())
     return tcnt
 
@@ -92,6 +113,65 @@ def test_live_mask():
     assert int(cnt.sum()) > 0
 
 
+@pytest.mark.parametrize("skip_dist", [False, True])
+@pytest.mark.parametrize("kind", GATE_CELL_CASES)
+def test_cell_distributions(kind, skip_dist):
+    """Two Q tiles of 256; the valid Q lanes end inside the second tile."""
+    rng = np.random.default_rng(11)
+    pf = _feats_of_cells(rng, gate_cells(kind, rng, 512), 400, -1)
+    qf = _feats_of_cells(rng, gate_cells(kind, rng, 512), 300, -2)
+    cnt = _both(pf, qf, _rand32(rng, 512), _rand32(rng, 512), 256, 400, 300,
+                skip_dist)
+    assert int(cnt.sum()) > 0
+    if kind == "one_cell" and skip_dist:
+        assert int(cnt.sum()) == 400 * 300      # every valid pair passes
+
+
+@pytest.mark.parametrize("kind", [None, "all_distinct", "above_low_16_bits"])
+def test_eight_stripes_q_tile_not_a_multiple_of_256(kind):
+    """n_sub 8 on 400-column Q tiles (stripes of 50), partial counts."""
+    rng = np.random.default_rng(12)
+    cells = (lambda n: rng.integers(0, 6, n).astype(np.int32)) if kind is None \
+        else (lambda n: gate_cells(kind, rng, n))
+    pf = _feats_of_cells(rng, cells(256), 200, -1)
+    qf = _feats_of_cells(rng, cells(1200), 930, -2)
+    cnt = _both(pf, qf, _rand32(rng, 256), _rand32(rng, 1200), 400, 200, 930,
+                False, n_sub=8)
+    assert int(cnt.sum()) > 0
+
+
+def _cpu_args(rng, p=256, q=256):
+    pf, pc = _port_layout(_feats(rng, p, p, -1))
+    qf, qc = _port_layout(_feats(rng, q, q, -2))
+    rp = torch.from_numpy(_rand32(rng, p)[None].copy())
+    rq = torch.from_numpy(_rand32(rng, q)[None].copy())
+    return dict(p_feat=pf, q_feat=qf, p_cell=pc, q_cell=qc, rp=rp, rq=rq,
+                alpha=torch.tensor([0.1]),
+                p_count=torch.tensor([p], dtype=torch.int32),
+                q_count=torch.tensor([q], dtype=torch.int32),
+                live=torch.ones((1, 1, 1), dtype=torch.int32), q_tile=q)
+
+
+@pytest.mark.parametrize("name,change,error", [
+    ("p_feat", lambda t: t.double(), TypeError),
+    ("q_cell", lambda t: t.long(), TypeError),
+    ("rq", lambda t: t.float(), TypeError),
+    ("alpha", lambda t: t.to("meta"), ValueError),
+    ("live", lambda t: t.to("meta"), ValueError),
+    ("q_feat", lambda t: t.transpose(1, 2).contiguous().transpose(1, 2), ValueError),
+    ("rp", lambda t: t[:, :-1], ValueError),
+    ("p_count", lambda t: t[None], ValueError),
+])
+def test_argument_check_rejects(name, change, error):
+    """The one-pass check of the CUDA path, run here on CPU tensors: wrong
+    dtype, another device, a non-contiguous view, a wrong shape."""
+    args = _cpu_args(np.random.default_rng(5))
+    tdg._check_kernel_args(torch.device("cpu"), **args)       # all good
+    tdg._check_kernel_args(torch.device("cpu"), **dict(args, live=None))
+    with pytest.raises(error, match=name):
+        tdg._check_kernel_args(torch.device("cpu"), **dict(args, **{name: change(args[name])}))
+
+
 def test_wrapper_cpu_takes_plain_version_only():
     rng = np.random.default_rng(4)
     pf, pc = _port_layout(_feats(rng, 256, 256, -1))
@@ -101,9 +181,11 @@ def test_wrapper_cpu_takes_plain_version_only():
               q_count=torch.tensor([256], dtype=torch.int32))
     args = (pf, qf, pc, qc, r, r, torch.tensor([0.1]), 0.5, 0.01, MASK, MARKER)
     before = tdg.dense_gate.launches
+    built = (_build._lib, tdg._kernel)
     got = tdg.dense_gate(*args, **kw)
     ref = tdg.dense_gate_reference(*args, **kw)
     assert tdg.dense_gate.launches == before
+    assert (_build._lib, tdg._kernel) == built      # nothing was built or bound
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
     meta = [a.to("meta") if isinstance(a, torch.Tensor) else a for a in args]

@@ -12,7 +12,9 @@ import pytest
 import torch
 
 from model_matching_tpu.ops import densefield as jdf, gridhash as jgh
+from model_matching_tpu_torch.ops import _build
 from model_matching_tpu_torch.ops import densefield as tdf, gridhash as tgh
+from model_matching_tpu_torch.ops import row_gather as trg
 from model_matching_tpu_torch.ops.row_gather import row_gather, row_gather_reference
 
 
@@ -26,8 +28,10 @@ def test_plain_gather_equals_np_take(rows, n_idx, dtype):
     t_tab = torch.from_numpy(tab)
     t_idx = torch.from_numpy(idx).to(dtype)
     before = row_gather.launches
+    built = (_build._lib, trg._kernel)
     got = row_gather(t_tab, t_idx)
     assert row_gather.launches == before      # the CPU takes the plain version
+    assert (_build._lib, trg._kernel) == built      # and builds and binds nothing
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(row_gather_reference(t_tab, t_idx).numpy(), want)
     # any index shape
@@ -47,6 +51,16 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         row_gather(tab, idx.float())
     with pytest.raises(ValueError, match="unsupported device"):
         row_gather(tab.to("meta"), idx.to("meta"))
+    with pytest.raises(ValueError, match="idx is on"):
+        row_gather(tab, idx.to("meta"))
+    with pytest.raises(ValueError, match="2-D"):
+        row_gather(tab[0], idx)
+    with pytest.raises(ValueError, match="empty table"):
+        row_gather(tab[:0], idx)
+    # no rows asked of an empty table, and a non-contiguous index, are fine
+    assert row_gather(tab[:0], idx[:0]).shape == (0, 8)
+    wide = torch.arange(8).view(4, 2).t()
+    assert torch.equal(row_gather(tab, wide), tab[wide])
 
 
 @pytest.fixture(scope="module")
