@@ -56,14 +56,54 @@ Phases, in order; any failure exits nonzero and prints no result:
              to load_scene on the CPU (valid mask, positions, normals and
              probabilities bit for bit). Prints ingest and per-phase times.
 
+8. instance — the instance path at full width on the card: the same
+             640x480 scene with probability_maps/edge.png (the silhouette
+             boundary and a line across the background), written to
+             build/chip_smoke_instance/, through cli.main(["stocs-single",
+             ..., "--cluster", "--heatmap"]) at the ycb preset's defaults,
+             with both kernels' launch counts reset just before and every
+             dense-gate launch and row gather recorded. Requires: the scene
+             loads has_edge; both kernels launched; an orthonormal pose
+             whose posed model lies on the ingested scene; the segment
+             masks, clusters, heatmap and overlay written; then, from the
+             sampler on the ingested scene (100 bases): the prior decayed
+             (some valid point below its ingested value, none above), every
+             valid base's four points inside its own segment mask and none
+             on an edge pixel, the count of unconverged fills printed, and
+             both ways of taking the cached-mask branch timed (equal
+             outputs). The recorded launches are held against the plain
+             versions bit for bit (the dense gate on the first two and the
+             last base of a launch). Then at 160x120, 16 bases, a 1 cm
+             voxel, 4,096 points, 2,048 pairs per bin and 64 sets per base
+             the port on the card against the port on the CPU: equal
+             sampled bases, segment masks and decayed prior, the same best
+             index, LCP within 1e-5.
+9. sweep   — the class scene of phase 7 through cli.main(["stocs-single", ...,
+             "--sweep", "4096", "--sweep-chunk", "2048", "--cluster",
+             "--heatmap"]), once uninterrupted (launch counts reset just
+             before), then with --sweep-checkpoint and --sweep-stop-after 1
+             (this one-chunk run's dense-gate launches and row gathers are
+             recorded) and once more to resume. Requires: both kernels
+             launched; the bit-packed existence matrix built in each call;
+             the resumed pose and cluster files equal to the uninterrupted
+             ones byte for byte; the checkpoint written, then removed; the
+             best pose on the scene; at least one cluster, the first being
+             the pool's best; pair_count_max within max_pairs_per_bin or
+             the warning logged. The recorded launches are held against the
+             plain versions as in phase 8; the largest dense-gate launch
+             and each distinct gather are timed. Prints bases/s and
+             hypotheses/s.
+
 The line before the last is a JSON object describing the kernels (their
-launches are those of phase 7's run); the last line is
+`launches` are those of phase 7's run; `launches_instance` and
+`launches_sweep` those of phases 8 and 9); the last line is
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import os
 import shutil
 import subprocess
@@ -397,6 +437,14 @@ def main() -> int:
     _phase("files")
     files = _files_phase(torch, dev, dense_gate, row_gather)
 
+    # ---- 8. the instance path at full width
+    _phase("instance")
+    inst = _instance_phase(torch, dev, dense_gate, dense_gate_reference, row_gather)
+
+    # ---- 9. the chunked sweep with a checkpoint, clustering and the heatmap
+    _phase("sweep")
+    sweep = _sweep_phase(torch, dev, dense_gate, dense_gate_reference, row_gather)
+
     field = max((r for r in gather_shapes if r["what"] == "field rows"),
                 key=lambda r: r["bytes"])
     print(json.dumps({"kernels": [{
@@ -405,7 +453,8 @@ def main() -> int:
         "source": "model_matching_tpu_torch/csrc/dense_gate.cu",
         "replaces": "model_matching_tpu/ops/pallas_congruent.py:180",
         "launches": files["dense_gate_launches"],
-        "max_abs_err": max(max_err, recorded["max_abs_err"]),
+        "max_abs_err": max(max_err, recorded["max_abs_err"],
+                           inst["gate_max_abs_err"], sweep["gate_max_abs_err"]),
         "ms": recorded["ms"],
         "plain_ms": recorded["plain_ms"],
         "bound_ms": recorded["bound_ms"],
@@ -413,7 +462,11 @@ def main() -> int:
         "library_ms": None,
         "timed_shape": recorded["shape"],
         "launches_synthetic_main": launches,
+        "launches_instance": inst["dense_gate_launches"],
+        "launches_sweep": sweep["dense_gate_launches"],
         "recorded_main_path_launch": recorded,
+        "recorded_instance_launches": inst["gates"],
+        "recorded_sweep_chunk_launches": sweep["gates"],
         "per_shape": per_shape,
     }, {
         "name": "row_gather",
@@ -421,7 +474,8 @@ def main() -> int:
         "source": "model_matching_tpu_torch/csrc/row_gather.cu",
         "replaces": "scripts/probe_vmem_gather.py:38",
         "launches": files["row_gather_launches"],
-        "max_abs_err": gather_err,
+        "max_abs_err": max(gather_err, inst["gather_max_abs_err"],
+                           sweep["gather_max_abs_err"]),
         "ms": field["ms"],
         "plain_ms": field["plain_ms"],
         "bound_ms": field["bound_ms"],
@@ -429,7 +483,11 @@ def main() -> int:
         "library_ms": field["library_ms"],
         "timed_shape": field["shape"],
         "launches_synthetic_main": gather_launches,
+        "launches_instance": inst["row_gather_launches"],
+        "launches_sweep": sweep["row_gather_launches"],
         "per_shape": gather_shapes,
+        "instance_gathers": inst["gathers"],
+        "sweep_chunk_gathers": sweep["gathers"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -441,19 +499,23 @@ class _record_gathers:
     tensors), by wrapping the name the two call sites use. The real wrapper
     still launches and counts."""
 
-    def __init__(self, scene):
+    def __init__(self, scene=None):
         from model_matching_tpu_torch.ops import densefield, gridhash
 
         self._mods = (densefield, gridhash)
         self._real = densefield.row_gather
-        self._names = {scene.field.rows.data_ptr(): "field rows",
-                       scene.grid.payload.data_ptr(): "payload rows",
-                       scene.icp_grid.payload.data_ptr(): "ICP payload rows"}
+        # without the scene (a command loads its own) a table is named by
+        # its row width: field rows are 8 floats wide
+        self._names = {} if scene is None else {
+            scene.field.rows.data_ptr(): "field rows",
+            scene.grid.payload.data_ptr(): "payload rows",
+            scene.icp_grid.payload.data_ptr(): "ICP payload rows"}
         self.calls = []
 
         def recording(table, idx):
-            self.calls.append((self._names.get(table.data_ptr(), "other"), table,
-                               idx.clone()))
+            name = self._names.get(table.data_ptr()) or (
+                "field rows" if table.shape[1] == 8 else "payload rows")
+            self.calls.append((name, table, idx.clone()))
             return self._real(table, idx)
 
         for m in self._mods:
@@ -575,8 +637,6 @@ def _recorded_gates_phase(torch, calls, dense_gate, dense_gate_reference):
 
 
 def _row_gather_phase(torch, dev, gathers):
-    from model_matching_tpu_torch.ops.row_gather import row_gather, row_gather_reference
-
     gen = torch.Generator().manual_seed(5)
     cases = []
     for rows, n_idx in ((8, 8), (64, 64), (1024, 256), (4096, 512)):
@@ -591,7 +651,17 @@ def _row_gather_phase(torch, dev, gathers):
     flat = torch.randn(1 + 5000 * 8, generator=gen).to(dev)
     cases.append(("misaligned [5000, 8] x 4096", flat[1:].view(5000, 8),
                   torch.randint(0, 5000, (4096,), generator=gen).to(dev)))
-    out, max_err = [], 0.0
+    return _check_gathers(torch, cases)
+
+
+def _check_gathers(torch, cases, time_repeats=True):
+    """row_gather == its plain version bit for bit on every (name, table,
+    index) case, int32 and int64 indices; each case is timed warm beside
+    the plain version and torch.index_select (with time_repeats=False only
+    the first case of each name and shape). Returns (rows, max_abs_err)."""
+    from model_matching_tpu_torch.ops.row_gather import row_gather, row_gather_reference
+
+    out, max_err, seen = [], 0.0, set()
     for name, tab, idx in cases:
         for dtype in (torch.int32, torch.int64):
             ix = idx.to(dtype)
@@ -602,6 +672,9 @@ def _row_gather_phase(torch, dev, gathers):
             if not torch.equal(got, ref):
                 raise AssertionError(f"row_gather differs from the plain version: "
                                      f"{name} {dtype}")
+        if not time_repeats and name in seen:
+            continue
+        seen.add(name)
         ix = idx.reshape(-1)
         ms = _time_ms(torch, lambda: row_gather(tab, ix))
         plain_ms = _time_ms(torch, lambda: row_gather_reference(tab, ix))
@@ -727,12 +800,6 @@ def _files_phase(torch, dev, dense_gate, row_gather):
     if min(counts.values()) <= 0:
         raise AssertionError(f"the command-line path missed a kernel: {counts}")
 
-    pose = np.loadtxt(os.path.join(scene_dir, f"best_pose_candidate_{obj}.txt"))
-    if pose.shape != (12,) or not np.isfinite(pose).all():
-        raise AssertionError("the pose file is not 12 finite numbers")
-    w = pose.reshape(3, 4)
-    if not np.allclose(w[:, :3] @ w[:, :3].T, np.eye(3), atol=1e-4):
-        raise AssertionError("the pose's rotation is not orthonormal")
     for name in ("sampled_scene.ply", "best_pose.ply", "scene.ply"):
         if not os.path.exists(os.path.join(scene_dir, "dbg", name)):
             raise AssertionError(f"dbg/{name} was not written")
@@ -759,16 +826,410 @@ def _files_phase(torch, dev, dense_gate, row_gather):
             raise AssertionError(f"load_scene on the card differs from the CPU in {f}")
     _ingest_breakdown(torch, dev, paths, cfg)
     _warm_estimator(torch, dev, root, obj, gpu, cfg)
-    live = gpu.valid
-    scene_pts = gpu.pos[live] + gpu.centroid
+    _pose_file_on_scene(torch, dev, np,
+                        os.path.join(scene_dir, f"best_pose_candidate_{obj}.txt"),
+                        os.path.join(root, "models", obj, "model_search.ply"), gpu, cfg)
+    return counts
+
+class _log_events(logging.Handler):
+    """Collect what the port logs while a command runs: its one-line JSON
+    events (stocs_run, stocs_sweep with their stats) and its warnings."""
+
+    def __init__(self):
+        from model_matching_tpu_torch.utils.log import get_logger
+
+        super().__init__()
+        self.events, self.warnings = [], []
+        self._logger = get_logger()
+        self._logger.addHandler(self)
+
+    def emit(self, record):
+        msg = record.getMessage()
+        if record.levelno >= logging.WARNING:
+            self.warnings.append(msg)
+        elif msg.startswith("{"):
+            self.events.append(json.loads(msg))
+
+    def last(self, event):
+        found = [e for e in self.events if e.get("event") == event]
+        if not found:
+            raise AssertionError(f"no {event} event was logged")
+        return found[-1]
+
+    def stop(self):
+        self._logger.removeHandler(self)
+
+
+def _slice_bases(args, kw, keep):
+    """The dense-gate arguments of the bases `keep` of a recorded launch
+    (the gate is independent per base)."""
+    pick = lambda t: t[keep].contiguous()
+    out_kw = dict(kw, p_count=pick(kw["p_count"]), q_count=pick(kw["q_count"]),
+                  live=None if kw.get("live") is None else pick(kw["live"]))
+    return tuple(pick(a) for a in args[:7]) + tuple(args[7:]), out_kw
+
+
+def _check_recorded_gates(torch, calls, dense_gate, dense_gate_reference, where):
+    """Kernel == plain bit for bit on every recorded dense-gate launch of a
+    path: all bases of a launch of up to three, else its first two and its
+    last (printed). The largest launch (bases x P x Q) is timed whole on
+    the kernel; the plain version is timed on the checked bases."""
+    if not calls:
+        raise AssertionError(f"{where}: no dense-gate launch was recorded")
+    shape_of = lambda a: (a[2].shape[0], a[2].shape[1], a[3].shape[1])
+    rows, max_err = [], 0
+    for args, kw in calls:
+        b, p, q = shape_of(args)
+        keep = list(range(b)) if b <= 3 else [0, 1, b - 1]
+        s_args, s_kw = _slice_bases(args, kw, keep)
+        err, n_match = _gate_equal(
+            torch, dense_gate, dense_gate_reference, s_args, s_kw,
+            f"{where}: a recorded launch, {b} bases P={p} Q={q}, bases {keep}")
+        max_err = max(max_err, err)
+        rows.append({"bases": b, "p": p, "q": q, "q_tile": kw["q_tile"],
+                     "n_sub": kw["n_sub"], "checked_bases": keep, "matches": n_match})
+        print(f"{where} recorded launch: {b} bases, P={p}, Q={q}, q_tile={kw['q_tile']}, "
+              f"n_sub={kw['n_sub']}, skip_dist={kw['skip_dist']}, live="
+              f"{kw['live'] is not None}: bases {keep} equal; {n_match} matches there")
+    big = max(range(len(calls)), key=lambda i: rows[i]["bases"] * rows[i]["p"] * rows[i]["q"])
+    args, kw = calls[big]
+    ms = _device_ms(torch, lambda: dense_gate(*args, **kw), runs=5)
+    s_args, s_kw = _slice_bases(args, kw, rows[big]["checked_bases"])
+    plain_ms = _time_ms(torch, lambda: dense_gate_reference(*s_args, **s_kw), runs=2)
+    n_checked = len(rows[big]["checked_bases"])
+    out_elems = rows[big]["bases"] * rows[big]["p"] * kw["n_sub"]
+    rows[big].update(ms=ms, plain_ms_checked_bases=plain_ms,
+                     plain_ms_per_base=plain_ms / n_checked, output_elements=out_elems)
+    print(f"{where} largest recorded launch ({rows[big]['bases']} bases, P={rows[big]['p']}, "
+          f"Q={rows[big]['q']}; {out_elems} stripe maxima): kernel {ms:.4f} ms on the "
+          f"device ({ms / rows[big]['bases']:.4f} ms a base); plain {plain_ms:.4f} ms for "
+          f"{n_checked} bases")
+    return {"launches": rows, "largest": rows[big], "max_abs_err": max_err}
+
+
+def _recorded_gather_cases(calls):
+    return [(f"{what} {list(tab.shape)} x {list(idx.shape)}", tab, idx)
+            for what, tab, idx in calls]
+
+
+def _pose_file_on_scene(torch, dev, np, path, model_ply, scene, cfg):
+    """The 3x4 pose file is finite and orthonormal and its posed model lies
+    on the ingested scene; returns the median NN distance."""
+    from model_matching_tpu_torch.io import ply
+
+    pose = np.loadtxt(path)
+    if pose.shape != (12,) or not np.isfinite(pose).all():
+        raise AssertionError(f"{path} is not 12 finite numbers")
+    w = pose.reshape(3, 4)
+    if not np.allclose(w[:, :3] @ w[:, :3].T, np.eye(3), atol=1e-4):
+        raise AssertionError("the pose's rotation is not orthonormal")
+    mpos = ply.read_ply_cloud(model_ply)[0]
     wt = torch.from_numpy(w.astype(np.float32)).to(dev)
     moved = torch.from_numpy(mpos).to(dev) @ wt[:, :3].T + wt[:, 3]
+    scene_pts = scene.pos[scene.valid] + scene.centroid
     med = float(torch.cdist(moved, scene_pts).amin(dim=1).median())
     print(f"posed model median NN distance to the ingested scene {med:.6f} m "
           f"(limit {1.5 * cfg.distance_threshold})")
     if not med < 1.5 * cfg.distance_threshold:
         raise AssertionError("the posed model does not land on the ingested scene")
-    return counts
+    return med
+
+
+def _instance_phase(torch, dev, dense_gate, dense_gate_reference, row_gather):
+    import dataclasses
+
+    import numpy as np
+
+    from model_matching_tpu_torch import cli, rng
+    from model_matching_tpu_torch import estimator as est_mod
+    from model_matching_tpu_torch.config import get_preset
+    from model_matching_tpu_torch.model import load_model_pack
+    from model_matching_tpu_torch.scene import load_scene
+    from model_matching_tpu_torch.synthetic import write_synthetic_scene
+
+    root = os.path.join(_ROOT, "build", "chip_smoke_instance")
+    shutil.rmtree(root, ignore_errors=True)
+    obj = "synthetic_shell"
+    scene_dir, cfg, _gt = write_synthetic_scene(root, obj, edge=True)
+    if cfg != get_preset("ycb").match:
+        raise AssertionError("the scene was not written at the ycb preset's camera")
+    if cli.main(["model-preprocess", obj, "--repo-path", root]) != 0:
+        raise AssertionError("model-preprocess failed")
+    log = _log_events()
+    gathers, gates = _record_gathers(), _record_gates()
+    dense_gate.launches = 0
+    row_gather.launches = 0
+    t0 = time.perf_counter()
+    rc = cli.main(["stocs-single", scene_dir, obj, "--repo-path", root,
+                   "--cluster", "--heatmap"])
+    t_single = time.perf_counter() - t0
+    counts = {"dense_gate_launches": dense_gate.launches,
+              "row_gather_launches": row_gather.launches}
+    gathers.stop()
+    gates.stop()
+    log.stop()
+    if rc != 0:
+        raise AssertionError("stocs-single failed on the edge-mapped scene")
+    run = log.last("stocs_run")
+    print(f"instance: stocs-single {t_single:.3f} s (first run on this scene); launches "
+          f"{json.dumps(counts)}; phases_ms {json.dumps(run['timings_ms'])}; best_lcp "
+          f"{run['best_lcp']:.6f}, {run['bases']} bases, {run['hypotheses']} hypotheses; "
+          f"unconverged flood fills {run['unconverged_fills']}")
+    for w in log.warnings:
+        print(f"warning logged: {w}")
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"the instance path missed a kernel: {counts}")
+    dbg = os.path.join(scene_dir, "dbg")
+    n_masks = len([f for f in os.listdir(dbg) if f.startswith("seg_mask_")])
+    for name in ("sampled_scene.ply", "best_pose.ply", "scene.ply",
+                 "probability_heatmap.png", f"overlay_{obj}.png"):
+        if not os.path.exists(os.path.join(dbg, name)):
+            raise AssertionError(f"dbg/{name} was not written")
+    clusters = np.loadtxt(os.path.join(scene_dir, f"clustered_poses_{obj}.txt"), ndmin=2)
+    if n_masks < 1 or clusters.shape[0] < 1 or clusters.shape[1] != 13:
+        raise AssertionError("segment masks or clustered poses are missing")
+    print(f"{n_masks} segment masks, {clusters.shape[0]} clusters (best LCP "
+          f"{clusters[0, 12]:.6f}), heatmap and overlay written")
+
+    maps = os.path.join(scene_dir, "probability_maps")
+    paths = [os.path.join(scene_dir, "rgb.png"), os.path.join(scene_dir, "depth.png"),
+             os.path.join(maps, f"{obj}.png"), os.path.join(maps, "edge.png")]
+    scene = load_scene(*paths, cfg, device=dev)
+    if not scene.has_edge or bool(scene.edge_free.all()):
+        raise AssertionError("the scene did not load its edge map")
+    mdir = os.path.join(root, "models", obj)
+    model_ply = os.path.join(mdir, "model_search.ply")
+    model = load_model_pack(model_ply, os.path.join(mdir, "ppf_table.npz"),
+                            cfg.max_model_points, device=dev)
+    _pose_file_on_scene(torch, dev, np, os.path.join(
+        scene_dir, f"best_pose_candidate_{obj}.txt"), model_ply, scene, cfg)
+
+    # the sampler on the ingested scene: its outputs, and the two ways of
+    # taking the cached-mask branch timed warm
+    k_sample = rng.split(rng.PRNGKey(cfg.seed))[0]
+    from model_matching_tpu_torch import instance
+
+    def sample(branch):
+        return instance.sample_instance_bases_stepwise(
+            k_sample, model.table, scene.pos, scene.normal, scene.class_prob,
+            scene.edge_prob, scene.pixel, scene.valid, scene.edge_free,
+            num_bases=cfg.number_of_bases, dispersion=cfg.sample_dispersion,
+            tr_disc=cfg.ppf_tr_discretization, rot_disc=cfg.ppf_rot_discretization,
+            plane_threshold=cfg.plane_threshold,
+            min_distance_base=cfg.min_distance_base,
+            internal_angle_threshold=cfg.internal_angle_threshold,
+            flood_max_iters=cfg.flood_fill_max_iters, block=cfg.instance_scan_block,
+            flood_sweeps=cfg.flood_fill_sweeps or None, cache_branch=branch)
+
+    # alternately, four runs each; the first of each warms up, the median
+    # of the other three stays (single runs differ by the host's noise)
+    walls, outs = {"read": [], "select": []}, {}
+    for _ in range(4):
+        for branch in walls:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[branch] = sample(branch)
+            torch.cuda.synchronize()
+            walls[branch].append(time.perf_counter() - t0)
+    timed = {k: sorted(v[1:])[1] for k, v in walls.items()}
+    for a, b in zip(outs["read"], outs["select"]):
+        if not torch.equal(a, b):
+            raise AssertionError("the two cached-mask branches give different outputs")
+    s = outs["read"]
+    n_b = cfg.number_of_bases
+    masks = s.seg_masks
+    distinct = int(torch.unique(masks[1:].flatten(1).to(torch.uint8), dim=0).shape[0])
+    spread = {k: [round(t / n_b * 1e3, 4) for t in v[1:]] for k, v in walls.items()}
+    print(f"instance sampling, {n_b} bases, warm, median of 3 ({_gpu_name_and_limit()}): "
+          f"cached mask read on the host {timed['read'] / n_b * 1e3:.4f} ms a base "
+          f"{spread['read']}, fill always and select "
+          f"{timed['select'] / n_b * 1e3:.4f} ms a base {spread['select']}; "
+          f"{int(s.valid.sum())} valid bases, {distinct} distinct segments, "
+          f"{int((~s.fill_converged).sum())} unconverged fills")
+    live = scene.valid
+    if bool((s.class_prob[live] > scene.class_prob[live]).any()):
+        raise AssertionError("the decayed prior rose somewhere")
+    if not bool((s.class_prob[live] < scene.class_prob[live]).any()):
+        raise AssertionError("the prior was not decayed")
+    pts = s.indices[s.valid].long()                          # [V, 4]
+    if pts.shape[0] < 1:
+        raise AssertionError("the instance sampler drew no valid base")
+    base_of = torch.nonzero(s.valid)[:, 0] + 1
+    pix = scene.pixel[pts].long()                            # [V, 4, 2]
+    inside = masks[base_of[:, None], pix[..., 0], pix[..., 1]]
+    if not bool(inside.all()):
+        raise AssertionError("a valid base has a point outside its own segment")
+    if bool((scene.edge_prob[pts] == 1.0).any()) or not bool(
+            scene.edge_free[pix[..., 0], pix[..., 1]].all()):
+        raise AssertionError("a valid base has a point on an edge pixel")
+    print(f"decayed: {int((s.class_prob[live] < scene.class_prob[live]).sum())} of "
+          f"{int(live.sum())} points below their ingested probability, none above; every "
+          f"valid base inside its own segment, none on an edge pixel "
+          f"({int((scene.edge_prob[live] == 1.0).sum())} scene points lie on one)")
+
+    gate_rows = _check_recorded_gates(torch, gates.calls, dense_gate,
+                                      dense_gate_reference, "instance")
+    gather_rows, gather_err = _check_gathers(
+        torch, _recorded_gather_cases(gathers.calls), time_repeats=False)
+    gates.calls.clear()
+    gathers.calls.clear()
+
+    # the card against the CPU at a reduced size
+    small_root = os.path.join(root, "small")
+    small_dir, small_cfg, _gt = write_synthetic_scene(small_root, obj, scale=0.25, edge=True)
+    small_cfg = dataclasses.replace(
+        small_cfg, number_of_bases=16, voxel_size=0.01, max_scene_points=4096,
+        max_pairs_per_bin=2048, maximum_congruent_sets=64)
+    maps = os.path.join(small_dir, "probability_maps")
+    paths = [os.path.join(small_dir, "rgb.png"), os.path.join(small_dir, "depth.png"),
+             os.path.join(maps, f"{obj}.png"), os.path.join(maps, "edge.png")]
+    sc_cpu = load_scene(*paths, small_cfg, device="cpu")
+    sc_gpu = load_scene(*paths, small_cfg, device=dev)
+    m_cpu = model.to("cpu")
+    res, ests = {}, {}
+    for name, m, sc in (("cpu", m_cpu, sc_cpu), ("cuda", model, sc_gpu)):
+        inst = est_mod._phase_sample_instance(
+            rng.split(rng.PRNGKey(0))[0], m.table, sc, sc.class_prob, small_cfg, 16)
+        ests[name] = est_mod.StocsEstimator(m, sc, small_cfg)
+        res[name] = (inst, ests[name].run(verbose=False))
+    (i_c, r_c), (i_g, r_g) = res["cpu"], res["cuda"]
+    same = (torch.equal(i_c.indices, i_g.indices.cpu())
+            and torch.equal(i_c.valid, i_g.valid.cpu())
+            and torch.equal(ests["cpu"].seg_masks, ests["cuda"].seg_masks.cpu())
+            and torch.equal(ests["cpu"].class_prob, ests["cuda"].class_prob.cpu()))
+    print(f"160x120, 16 bases, |S| = {int(sc_cpu.count())}: card against CPU: sampled "
+          f"bases, masks and decayed prior equal: {same}; best_index cpu {r_c.best_index} "
+          f"cuda {r_g.best_index}; best_lcp cpu {r_c.best_lcp:.7f} cuda {r_g.best_lcp:.7f}; "
+          f"{r_c.num_bases} bases, {r_c.num_hypotheses} hypotheses")
+    if (not same or r_c.best_index != r_g.best_index or r_c.best_index < 0
+            or abs(r_c.best_lcp - r_g.best_lcp) > 1e-5):
+        raise AssertionError("the instance path on the card disagrees with the CPU")
+    return dict(counts, gates=gate_rows, gate_max_abs_err=gate_rows["max_abs_err"],
+                gathers=gather_rows, gather_max_abs_err=gather_err,
+                sampling_ms_per_base={k: v / n_b * 1e3 for k, v in timed.items()},
+                phases_ms=run["timings_ms"])
+
+
+def _sweep_phase(torch, dev, dense_gate, dense_gate_reference, row_gather):
+    import numpy as np
+
+    from model_matching_tpu_torch import cli, sampling
+    from model_matching_tpu_torch.config import get_preset
+    from model_matching_tpu_torch.scene import load_scene
+
+    root = os.path.join(_ROOT, "build", "chip_smoke_files")    # phase 7's files
+    obj = "synthetic_shell"
+    scene_dir = os.path.join(root, "scene")
+    cfg = get_preset("ycb").match
+    base = ["stocs-single", scene_dir, obj, "--repo-path", root, "--sweep", "4096",
+            "--sweep-chunk", "2048", "--cluster", "--heatmap"]
+    pose_file = os.path.join(scene_dir, f"best_pose_candidate_{obj}.txt")
+    cluster_file = os.path.join(scene_dir, f"clustered_poses_{obj}.txt")
+    ckpt = os.path.join(root, "sweep.ckpt.npz")
+    for f in (pose_file, cluster_file, ckpt):
+        if os.path.exists(f):
+            os.remove(f)
+
+    built = []
+    real_build = sampling.build_exists_bits
+
+    def counting_build(*a, **kw):
+        bits = real_build(*a, **kw)
+        built.append(tuple(bits.shape))
+        return bits
+
+    sampling.build_exists_bits = counting_build
+    log = _log_events()
+    try:
+        dense_gate.launches = 0
+        row_gather.launches = 0
+        t0 = time.perf_counter()
+        if cli.main(base) != 0:
+            raise AssertionError("the sweep command failed")
+        t_full = time.perf_counter() - t0
+        counts = {"dense_gate_launches": dense_gate.launches,
+                  "row_gather_launches": row_gather.launches}
+        full = log.last("stocs_sweep")
+        with open(pose_file) as f:
+            pose_text = f.read()
+        with open(cluster_file) as f:
+            cluster_text = f.read()
+        os.remove(pose_file)
+        os.remove(cluster_file)
+
+        gathers, gates = _record_gathers(), _record_gates()
+        sliced = base + ["--sweep-checkpoint", ckpt, "--sweep-stop-after", "1"]
+        if cli.main(sliced) != 0 or not os.path.exists(ckpt):
+            raise AssertionError("the stopped sweep left no checkpoint")
+        gathers.stop()
+        gates.stop()
+        stopped = log.last("stocs_sweep")
+        if stopped["completed"] or stopped["next_chunk"] != 1 or os.path.exists(pose_file):
+            raise AssertionError(f"the sweep did not stop after one chunk: {stopped}")
+        if cli.main(sliced) != 0:
+            raise AssertionError("the resumed sweep failed")
+        resumed = log.last("stocs_sweep")
+    finally:
+        sampling.build_exists_bits = real_build
+        log.stop()
+    for w in log.warnings:
+        print(f"warning logged: {w}")
+    print(f"sweep: 4096 bases in chunks of 2048, command {t_full:.3f} s; launches "
+          f"{json.dumps(counts)}; {full['bases_per_sec']:.1f} bases/s, "
+          f"{full['hypotheses_per_sec']:.1f} hypotheses/s over {full['seconds']:.3f} s "
+          f"({full['hypotheses']} hypotheses, best_lcp {full['best_lcp']:.6f}, "
+          f"{full['clusters']} clusters, pair_count_max {full['pair_count_max']}); "
+          f"existence matrix built {len(built)} times {built[:1]}")
+    print(f"stopped after chunk 1: {stopped['total_bases']} bases in "
+          f"{stopped['seconds']:.3f} s; resumed: {resumed['total_bases']} bases, "
+          f"{resumed['seconds']:.3f} s in all, best_lcp {resumed['best_lcp']:.6f}")
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"the sweep missed a kernel: {counts}")
+    if len(built) != 3 or built[0] != (cfg.max_scene_points, cfg.max_scene_points // 32):
+        raise AssertionError(f"the sweeps did not build the existence matrix: {built}")
+    if os.path.exists(ckpt):
+        raise AssertionError("the completed sweep left its checkpoint behind")
+    with open(pose_file) as f:
+        same_pose = f.read() == pose_text
+    with open(cluster_file) as f:
+        same_clusters = f.read() == cluster_text
+    print(f"resumed == uninterrupted: pose file {same_pose}, cluster file "
+          f"{same_clusters}, hypotheses {resumed['hypotheses'] == full['hypotheses']}")
+    if not (same_pose and same_clusters and resumed["completed"]
+            and resumed["hypotheses"] == full["hypotheses"]
+            and resumed["best_lcp"] == full["best_lcp"]):
+        raise AssertionError("the resumed sweep differs from the uninterrupted one")
+    capped = any("max_pairs_per_bin" in w for w in log.warnings)
+    if full["pair_count_max"] > cfg.max_pairs_per_bin and not capped:
+        raise AssertionError("a PPF bin was truncated and no warning was logged")
+    clusters = np.loadtxt(cluster_file, ndmin=2)
+    if clusters.shape[0] < 1 or clusters.shape[1] != 13:
+        raise AssertionError("the sweep wrote no cluster")
+    if (np.diff(clusters[:, 12]) > 0).any():
+        raise AssertionError("the clusters are not in descending LCP order")
+    if abs(clusters[0, 12] - full["pool_best_lcp"]) > 1e-5:
+        raise AssertionError(
+            f"the first cluster ({clusters[0, 12]}) is not the pool's best "
+            f"({full['pool_best_lcp']})")
+    for name in ("probability_heatmap.png", f"overlay_{obj}.png"):
+        if not os.path.exists(os.path.join(scene_dir, "dbg", name)):
+            raise AssertionError(f"dbg/{name} was not written")
+    paths = [os.path.join(scene_dir, n) for n in
+             ("rgb.png", "depth.png", f"probability_maps/{obj}.png")]
+    scene = load_scene(*paths, None, cfg, device=dev)
+    _pose_file_on_scene(torch, dev, np, pose_file,
+                        os.path.join(root, "models", obj, "model_search.ply"), scene, cfg)
+
+    gate_rows = _check_recorded_gates(torch, gates.calls, dense_gate,
+                                      dense_gate_reference, "sweep chunk")
+    gather_rows, gather_err = _check_gathers(
+        torch, _recorded_gather_cases(gathers.calls), time_repeats=False)
+    gates.calls.clear()
+    gathers.calls.clear()
+    return dict(counts, gates=gate_rows, gate_max_abs_err=gate_rows["max_abs_err"],
+                gathers=gather_rows, gather_max_abs_err=gather_err,
+                bases_per_sec=full["bases_per_sec"],
+                hypotheses_per_sec=full["hypotheses_per_sec"])
 
 
 if __name__ == "__main__":

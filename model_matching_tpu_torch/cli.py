@@ -7,10 +7,18 @@ Counterpart of ``model_matching_tpu/cli.py`` for these two commands, with
 its flags, artifact names and formats: models/<object>/model_search.ply +
 ppf_table.npz, <scene>/best_pose_candidate_<object>.txt (12 floats,
 row-major 3x4, one line) and <scene>/dbg/{sampled_scene,best_pose,
-scene}.ply. `--device` picks the device (default cuda; without a card the
-commands fail unless given `--device cpu`). Flags of paths the port does
-not have yet (sweeps, clustering, heatmaps, profiling) exit nonzero with
-the ROADMAP item that will bring them. `main(argv)` runs in-process.
+scene}.ply. A scene with probability_maps/edge.png takes the instance path
+and also writes dbg/seg_mask_<n>.png. `--cluster` writes
+clustered_poses_<object>.txt (a pose and its LCP a line), `--heatmap`
+dbg/probability_heatmap.png and dbg/overlay_<object>.png, `--sweep N` runs
+the chunked sweep (`--sweep-chunk`, `--sweep-checkpoint`,
+`--sweep-checkpoint-every`, `--sweep-stop-after`) on the one device. Under
+`--sweep` the JAX package's command drops `--cluster` and `--heatmap`; this
+one writes the pool's clusters, the heatmap and the overlay of the sweep's
+best pose. `--device` picks the device (default cuda; without a card the
+commands fail unless given `--device cpu`). `--profile` and the commands
+not ported yet exit nonzero with the ROADMAP item that will bring them.
+`main(argv)` runs in-process.
 """
 
 from __future__ import annotations
@@ -25,13 +33,6 @@ import numpy as np
 
 # flags of paths not ported yet -> the ROADMAP.md Queue 1 item that ports them
 _NOT_PORTED = {
-    "sweep": "item 5, 'run_sweep with clustering'",
-    "sweep_chunk": "item 5, 'run_sweep with clustering'",
-    "sweep_checkpoint": "item 5, 'run_sweep with clustering'",
-    "sweep_checkpoint_every": "item 5, 'run_sweep with clustering'",
-    "sweep_stop_after": "item 5, 'run_sweep with clustering'",
-    "cluster": "item 5, 'run_sweep with clustering'",
-    "heatmap": "item 8, 'eval, io/bop, stocs-batch, stocs-multi and serve' (viz)",
     "profile": "item 8, 'eval, io/bop, stocs-batch, stocs-multi and serve' (profiling)",
 }
 
@@ -141,10 +142,44 @@ def cmd_model_preprocess(argv):
     return 0
 
 
+def _pose_row(t):
+    return " ".join(f"{t[i, j]:g}" for i in range(3) for j in range(4))
+
+
 def _write_pose(path, t):
     with open(path, "w") as f:
-        f.write(" ".join(f"{t[i, j]:g}" for i in range(3) for j in range(4)))
-        f.write("\n")
+        f.write(_pose_row(t) + "\n")
+
+
+def _write_clusters(path, transforms, lcps):
+    with open(path, "w") as f:
+        for t, s in zip(transforms, lcps):
+            f.write(f"{_pose_row(t)} {s:g}\n")
+    print(f"wrote {path} ({len(transforms)} clusters)")
+
+
+def _write_heatmap(dbg, scene_path, object_name, scene, est, model, cfg, live,
+                   world_transform):
+    """dbg/probability_heatmap.png of the estimator's current (possibly
+    decayed) prior, and the overlay of `world_transform` when there is
+    one."""
+    from . import viz
+    from .estimator import _to_host
+
+    pix, prob, mpos, mvalid, mc = _to_host(
+        scene.pixel, est.class_prob, model.pos, model.valid, model.centroid)
+    viz.visualize_heatmap(
+        pix[live].astype(np.int64), prob[live].astype(np.float32), [],
+        os.path.join(dbg, "probability_heatmap.png"),
+        cfg.image_width, cfg.image_height,
+    )
+    if world_transform is not None:
+        mp = (mpos[mvalid.astype(bool)] + mc).astype(np.float32)
+        viz.overlay_pose(
+            os.path.join(scene_path, "rgb.png"), mp, world_transform,
+            *cfg.camera.as_tuple(),
+            os.path.join(dbg, f"overlay_{object_name}.png"),
+        )
 
 
 def cmd_stocs_single(argv):
@@ -167,21 +202,29 @@ def cmd_stocs_single(argv):
     p.add_argument("--no-refine", action="store_true",
                    help="skip the point-to-plane ICP polish of the winner")
     p.add_argument("--cluster", action="store_true",
-                   help="also write clustered_poses_<object>.txt (not ported)")
+                   help="also write clustered_poses_<object>.txt")
     p.add_argument("--heatmap", action="store_true",
-                   help="write probability heatmap + pose overlay PNGs (not ported)")
+                   help="write probability heatmap + pose overlay PNGs")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="write a profiler trace of the run to DIR (not ported)")
     p.add_argument("--sweep", type=int, default=None, metavar="TOTAL_BASES",
-                   help="large hypothesis sweep (not ported)")
-    p.add_argument("--sweep-chunk", type=int, default=None, metavar="BASES",
-                   help="bases per sweep chunk (not ported)")
+                   help="large hypothesis sweep: process TOTAL_BASES in "
+                        "chunks (StocsEstimator.run_sweep) instead of one "
+                        "number-of-bases run")
+    p.add_argument("--sweep-chunk", type=int, default=2048, metavar="BASES",
+                   help="bases per sweep chunk (default 2048)")
     p.add_argument("--sweep-checkpoint", default=None, metavar="PATH",
-                   help="persist sweep state to PATH (not ported)")
-    p.add_argument("--sweep-checkpoint-every", type=int, default=None,
-                   metavar="CHUNKS", help="(not ported)")
+                   help="persist sweep state to PATH every "
+                        "--sweep-checkpoint-every chunks; re-running with "
+                        "the same arguments resumes (bit-identical to an "
+                        "uninterrupted sweep); removed on completion")
+    p.add_argument("--sweep-checkpoint-every", type=int, default=8,
+                   metavar="CHUNKS")
     p.add_argument("--sweep-stop-after", type=int, default=None,
-                   metavar="CHUNKS", help="(not ported)")
+                   metavar="CHUNKS",
+                   help="process at most CHUNKS chunks this invocation, "
+                        "checkpoint, and exit (time-sliced operation; "
+                        "requires --sweep-checkpoint)")
     args = p.parse_args(argv)
 
     if args.sweep_stop_after and not args.sweep_checkpoint:
@@ -249,11 +292,45 @@ def cmd_stocs_single(argv):
     print(f"############# RUNNING STOCS for Scene: {args.scene_path}, "
           f"Object: {args.object} ##############")
     est = StocsEstimator(model, scene, cfg)
-    try:
-        result = est.run(coarse_to_fine=not args.no_coarse_to_fine)
-    except NotImplementedError as e:
-        print(f"error: {e}")
-        return 2
+
+    if args.sweep:
+        # always the one device of the packs (the JAX package's command
+        # shards the sweep when it sees several devices)
+        best_lcp, best_w, cl_t, cl_s, stats = est.run_sweep(
+            args.sweep, chunk=args.sweep_chunk,
+            checkpoint_path=args.sweep_checkpoint,
+            checkpoint_every=args.sweep_checkpoint_every,
+            stop_after_chunks=args.sweep_stop_after,
+        )
+        if not stats.get("completed", True):
+            print(f"sweep: stopped after chunk {stats['next_chunk']} — "
+                  f"checkpoint at {args.sweep_checkpoint}; re-run the same "
+                  f"command to resume")
+            return 0
+        out_file = os.path.join(scene_out, f"best_pose_candidate_{args.object}.txt")
+        os.makedirs(scene_out, exist_ok=True)
+        _write_pose(out_file, best_w)
+        print(f"wrote {out_file} (sweep best lcp {best_lcp:.4f})")
+        if args.heatmap:
+            _write_heatmap(dbg, args.scene_path, args.object, scene, est, model,
+                           cfg, live, best_w if best_lcp > 0 else None)
+        if args.cluster:
+            _write_clusters(
+                os.path.join(scene_out, f"clustered_poses_{args.object}.txt"),
+                cl_t, cl_s)
+        return 0
+
+    result = est.run(coarse_to_fine=not args.no_coarse_to_fine)
+
+    if est.seg_masks is not None:
+        # seg_mask_<n>.png debug artifacts, one per base that has a segment
+        from .io.image import write_u8
+
+        masks = est.seg_masks.cpu().numpy()
+        for i in range(1, masks.shape[0]):
+            if masks[i].any():
+                write_u8(os.path.join(dbg, f"seg_mask_{i}.png"),
+                         masks[i].astype(np.uint8) * 255)
 
     if result.best_index >= 0:
         out_file = os.path.join(scene_out, f"best_pose_candidate_{args.object}.txt")
@@ -273,6 +350,17 @@ def cmd_stocs_single(argv):
         )
     else:
         print("no pose found")
+
+    if args.heatmap:
+        _write_heatmap(dbg, args.scene_path, args.object, scene, est, model, cfg,
+                       live, result.best_world_transform
+                       if result.best_index >= 0 else None)
+
+    if args.cluster and result.best_index >= 0:
+        ctrs, clcp = est.cluster_poses(result)
+        _write_clusters(
+            os.path.join(scene_out, f"clustered_poses_{args.object}.txt"),
+            ctrs, clcp)
 
     for phase, secs in result.timings.items():
         print(f"  {phase}: {secs*1e3:.1f} ms")

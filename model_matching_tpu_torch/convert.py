@@ -30,6 +30,13 @@ def _t(a):
     return torch.from_numpy(arr)
 
 
+def exists_bits(bits) -> torch.Tensor:
+    """The JAX package's bit-packed pair-existence matrix ([N, N / 32]
+    uint32) as the port holds it: int32 words with the same bit patterns
+    (sampling.build_exists_bits)."""
+    return torch.from_numpy(np.array(np.asarray(bits), dtype=np.uint32).view(np.int32))
+
+
 def ppf_table(t) -> PPFTable:
     return PPFTable(
         exist_keys=_t(t.exist_keys), bin_keys=_t(t.bin_keys),

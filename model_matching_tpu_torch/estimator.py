@@ -1,8 +1,12 @@
-"""The STOCS estimator, class path: four device phases and an ICP polish.
+"""The STOCS estimator: four device phases and an ICP polish.
 
-Counterpart of ``StocsEstimator.run`` in ``model_matching_tpu/estimator.py``:
+Counterpart of ``model_matching_tpu/estimator.py`` (``run``, ``run_sweep``
+with its checkpoints, ``cluster_poses``):
 
-  phase 1  sample B bases           (sampling.py, one [B, N] program)
+  phase 1  sample B bases           (sampling.py, one [B, N] program; on a
+                                     scene with an edge map instance.py, a
+                                     sequential loop of flood-fill segments
+                                     under a decaying prior)
   phase 2  congruent sets per base  (congruent.py, tier buckets; the dense
                                      tiers run the dense-gate kernel)
   phase 3  rigid fits               (ops/fit.py, one [B, K] batch)
@@ -11,20 +15,23 @@ Counterpart of ``StocsEstimator.run`` in ``model_matching_tpu/estimator.py``:
 
 Every phase runs on the device of the packs (nothing moves them), the
 wall time of each is reported in ``timings``, and host reads are grouped
-into one transfer per decision point. The instance path (scenes with an
-edge map) is not ported yet.
+into one transfer per decision point. The instance path leaves its
+decayed prior on the estimator, and scoring reads it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
+import os
 import time
 from typing import Optional
 
 import numpy as np
 import torch
 
-from . import congruent, icp, rng, sampling, scoring
+from . import clustering, congruent, icp, instance, rng, sampling, scoring
 from .config import MatchConfig
 from .model import ModelPack, build_pair_ep
 from .ops import fit as fit_ops
@@ -65,7 +72,7 @@ def _to_host(*tensors):
 
 
 def _phase_sample(key, table, pos, normal, prior, valid, cfg: MatchConfig,
-                  num_bases: int):
+                  num_bases: int, exists_bits=None):
     return sampling.sample_class_bases(
         key, table, pos, normal, prior, valid,
         num_bases=num_bases,
@@ -74,6 +81,39 @@ def _phase_sample(key, table, pos, normal, prior, valid, cfg: MatchConfig,
         plane_threshold=cfg.plane_threshold,
         min_distance_base=cfg.min_distance_base,
         internal_angle_threshold=cfg.internal_angle_threshold,
+        exists_bits=exists_bits,
+    )
+
+
+def _phase_sample_instance(key, table, scene: ScenePack, class_prob,
+                           cfg: MatchConfig, num_bases: int,
+                           exists_bits=None):
+    """Instance-conditional sampling: the block-parallel sampler when
+    cfg.instance_block_size > 1 (its documented divergences, instance.py),
+    else the sequential one, making cfg.instance_scan_block bases' noise at
+    a time."""
+    kwargs = dict(
+        num_bases=num_bases,
+        dispersion=cfg.sample_dispersion,
+        tr_disc=cfg.ppf_tr_discretization,
+        rot_disc=cfg.ppf_rot_discretization,
+        plane_threshold=cfg.plane_threshold,
+        min_distance_base=cfg.min_distance_base,
+        internal_angle_threshold=cfg.internal_angle_threshold,
+        flood_max_iters=cfg.flood_fill_max_iters,
+        exists_bits=exists_bits,
+        flood_sweeps=cfg.flood_fill_sweeps or None,
+    )
+    if cfg.instance_block_size > 1:
+        return instance.sample_instance_bases_blocked(
+            key, table, scene.pos, scene.normal, class_prob,
+            scene.edge_prob, scene.pixel, scene.valid, scene.edge_free,
+            block_size=cfg.instance_block_size, **kwargs,
+        )
+    return instance.sample_instance_bases_stepwise(
+        key, table, scene.pos, scene.normal, class_prob,
+        scene.edge_prob, scene.pixel, scene.valid, scene.edge_free,
+        block=cfg.instance_scan_block, **kwargs,
     )
 
 
@@ -204,8 +244,221 @@ def _phase_refine(best_t, model: ModelPack, scene: ScenePack, class_prob,
     return refined, new_lcp
 
 
+_FIELD_SCORE_CHUNK = 8192   # hypotheses per dense-field pass over a pool
+
+
+def _phase_field_scores(poses: PoseCandidates, model: ModelPack,
+                        scene: ScenePack, class_prob, cfg: MatchConfig):
+    """Full-model dense-field LCP for every hypothesis (the ladder's
+    mid-stage scorer over the whole pool), used to backfill non-leader
+    scores for clustering. Hypotheses are independent, so the pool goes
+    through in chunks that bound the [chunk, M, 8] row reads."""
+    mc = model.valid.to(torch.float32).sum()
+    h = poses.transform.shape[0]
+    return torch.cat([
+        scoring.score_transforms_field(
+            poses.transform[i:i + _FIELD_SCORE_CHUNK],
+            poses.valid[i:i + _FIELD_SCORE_CHUNK],
+            model.pos, model.normal, model.valid, scene.field, class_prob,
+            cfg.distance_threshold, cfg.lcp_normal_angle_threshold,
+            model_count=mc,
+        ) for i in range(0, h, _FIELD_SCORE_CHUNK)
+    ])
+
+
+_SWEEP_CKPT_VERSION = 3  # v2: + chunk_slot_valid (fit-time compaction)
+#                          v3: + devices (0 = the one-device layout)
+
+
+def _sweep_cfg_fingerprint(cfg: MatchConfig) -> str:
+    """Stable fingerprint of the config: a resumed sweep must run under the
+    configuration that produced the checkpoint. The same string as the JAX
+    package computes for the same config (config.py is a field-for-field
+    copy)."""
+    d = dataclasses.asdict(cfg)
+    return hashlib.sha1(
+        json.dumps(d, sort_keys=True, default=repr).encode()
+    ).hexdigest()
+
+
+def _save_sweep_checkpoint(path, *, next_chunk, chunk, seed, kp, cfg_fp,
+                           use_instance, pool_s, pool_t, pool_w,
+                           chunk_valid, chunk_slot_valid, unconverged,
+                           elapsed, prob_decayed, class_prob, devices=0,
+                           pair_max=0):
+    """Atomic npz checkpoint of a sweep in progress, in the JAX package's
+    format (same keys, version 3). Chunk keys are fold_in(key0, ci),
+    stateless in the loop, so the only cross-chunk state is the pooled
+    winners and (instance mode) the decayed prior: resuming reproduces the
+    uninterrupted sweep bit for bit. `unconverged` and `pair_max` arrive as
+    0-dim tensors and ride the one transfer."""
+    host = _to_host(pool_s, pool_t, pool_w, chunk_valid, chunk_slot_valid,
+                    unconverged, pair_max,
+                    *([class_prob] if prob_decayed else []))
+    arrays = dict(
+        version=np.int64(_SWEEP_CKPT_VERSION),
+        next_chunk=np.int64(next_chunk),
+        chunk=np.int64(chunk),
+        seed=np.int64(seed),
+        kp=np.int64(kp),
+        cfg_fp=np.frombuffer(cfg_fp.encode(), dtype=np.uint8),
+        use_instance=np.bool_(use_instance),
+        pool_s=host[0].astype(np.float32),
+        pool_t=host[1].astype(np.float32),
+        pool_w=host[2].astype(np.float32),
+        chunk_valid=host[3].astype(np.int32),
+        chunk_slot_valid=host[4].astype(np.int32),
+        unconverged=np.int64(host[5]),
+        elapsed=np.float64(elapsed),
+        prob_decayed=np.bool_(prob_decayed),
+        devices=np.int64(devices),
+        # the running PPF pair maximum: without it a truncated bin of a
+        # chunk before the checkpoint would be forgotten on resume
+        pair_max=np.int64(host[6]),
+    )
+    if prob_decayed:
+        arrays["class_prob"] = host[7].astype(np.float32)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrays)
+    os.replace(tmp, path)
+
+
+def _load_sweep_checkpoint(path, *, chunk, seed, kp, cfg_fp, use_instance,
+                           device, devices=0):
+    """Load a sweep checkpoint (versions 1-3) onto `device` and validate it
+    against this call's parameters. Raises ValueError on any mismatch: a
+    checkpoint never resumes under different semantics."""
+    with np.load(path) as z:
+        ver = int(z["version"])
+        if ver not in (1, 2, _SWEEP_CKPT_VERSION):
+            raise ValueError(
+                f"sweep checkpoint {path}: unsupported version {ver}"
+            )
+        saved_fp = bytes(z["cfg_fp"]).decode()
+        mism = []
+        if int(z["chunk"]) != chunk:
+            mism.append(f"chunk {int(z['chunk'])} != {chunk}")
+        if int(z["seed"]) != seed:
+            mism.append(f"seed {int(z['seed'])} != {seed}")
+        if int(z["kp"]) != kp:
+            mism.append(f"keep_per_chunk {int(z['kp'])} != {kp}")
+        if saved_fp != cfg_fp:
+            mism.append("config fingerprint differs")
+        if bool(z["use_instance"]) != use_instance:
+            mism.append("sampling path (instance/class) differs")
+        saved_dev = int(z["devices"]) if ver >= 3 else 0
+        if saved_dev != devices:
+            mism.append(
+                f"device layout {saved_dev or 'single-chip'} != "
+                f"{devices or 'single-chip'}"
+            )
+        if mism:
+            raise ValueError(
+                f"sweep checkpoint {path} does not match this sweep: "
+                + "; ".join(mism)
+            )
+
+        def dev(name):
+            return torch.from_numpy(np.array(z[name])).to(device)
+
+        prob_decayed = bool(z["prob_decayed"])
+        return dict(
+            next_chunk=int(z["next_chunk"]),
+            pool_s=dev("pool_s"), pool_t=dev("pool_t"), pool_w=dev("pool_w"),
+            chunk_valid=dev("chunk_valid"),
+            # version 1 lacks the per-chunk congruent-valid counts: fall
+            # back to the fit-valid counts (a lower bound; the overflow
+            # warning may under-fire for the resumed chunks)
+            chunk_slot_valid=dev("chunk_slot_valid" if ver >= 2 else "chunk_valid"),
+            unconverged=int(z["unconverged"]),
+            pair_max=(int(z["pair_max"]) if "pair_max" in z.files else 0),
+            elapsed=float(z["elapsed"]),
+            prob_decayed=prob_decayed,
+            class_prob=dev("class_prob") if prob_decayed else None,
+        )
+
+
+def _cluster_pool(world, lcp, valid, best_score, cfg: MatchConfig):
+    """Greedy clustering of a scored pool under the config's thresholds;
+    returns (world transforms [K, 4, 4], lcp [K]) of the representatives as
+    float32 numpy arrays (one transfer)."""
+    idx, mask = clustering.greedy_clustering(
+        world, lcp, valid, cfg.cluster_acceptable_fraction, best_score,
+        cfg.cluster_max_pose_count, cfg.cluster_min_distance,
+        cfg.cluster_min_angle,
+        torch.tensor(cfg.cluster_symmetry, dtype=torch.float32,
+                     device=world.device),
+    )
+    safe = torch.clamp(idx, min=0).long()
+    h_mask, h_w, h_s = _to_host(mask, world[safe], lcp[safe])
+    keep = h_mask.astype(bool)
+    return h_w[keep].astype(np.float32), h_s[keep].astype(np.float32)
+
+
+def _world_of(centered, scene_centroid, model_centroid):
+    """world = T(+scene_centroid) centered T(-model_centroid), float32 on
+    the host."""
+    a = np.eye(4, dtype=np.float32)
+    a[:3, 3] = scene_centroid
+    b = np.eye(4, dtype=np.float32)
+    b[:3, 3] = -model_centroid
+    return a @ centered @ b
+
+
+def finish_sweep_pool(pool_s, pool_t, pool_w, model: ModelPack,
+                      scene: ScenePack, class_prob, cfg: MatchConfig,
+                      total_bases: int, n_hyp_total: int, t_start: float,
+                      verbose: bool = True, event: str = "stocs_sweep",
+                      extra_stats: Optional[dict] = None):
+    """Tail of a sweep: pool argmax, ICP polish of the winner, greedy
+    clustering of the pooled hypotheses (pruned against the raw pool best:
+    an ICP-refined best is no member of the pool and would over-prune),
+    stats and logging. Three transfers: argmax group, refine group,
+    cluster group.
+
+    Returns (best_lcp, best_world_transform, clustered_transforms,
+    clustered_lcp, stats)."""
+    bi = torch.argmax(pool_s)
+    h_best, h_w, h_sc, h_mc = _to_host(pool_s[bi], pool_w[bi], scene.centroid,
+                                       model.centroid)
+    best_lcp = float(h_best)
+    best_w = h_w.astype(np.float32)
+    raw_best = best_lcp
+
+    if cfg.refine_best_pose and best_lcp > 0:
+        refined, new_lcp = _phase_refine(pool_t[bi], model, scene, class_prob, cfg)
+        r_refined, r_lcp = _to_host(refined, new_lcp)
+        if float(r_lcp) >= best_lcp:
+            best_w = _world_of(r_refined.astype(np.float32), h_sc, h_mc)
+            best_lcp = float(r_lcp)
+    elapsed = time.perf_counter() - t_start
+
+    cl_w, cl_s = _cluster_pool(pool_w, pool_s, pool_s > 0, raw_best, cfg)
+    stats = {
+        "total_bases": total_bases,
+        "hypotheses": n_hyp_total,
+        "seconds": elapsed,
+        "bases_per_sec": total_bases / elapsed,
+        "hypotheses_per_sec": n_hyp_total / elapsed if elapsed else 0.0,
+        # the pool's own best, before the ICP polish: the first cluster
+        "pool_best_lcp": raw_best,
+        **(extra_stats or {}),
+    }
+    log_event(event, best_lcp=best_lcp, clusters=len(cl_s), **stats)
+    if verbose:
+        print(
+            f"sweep: {total_bases} bases -> {n_hyp_total} hypotheses in "
+            f"{elapsed:.1f}s ({stats['bases_per_sec']:.0f} bases/s), "
+            f"best lcp {best_lcp:.3f}, {len(cl_s)} clusters"
+        )
+    return best_lcp, best_w, cl_w, cl_s, stats
+
+
 class StocsEstimator:
-    """One (model, scene) matching session on the device of the packs."""
+    """Matches one model against one scene, on the device of the packs. The
+    class path (no edge map) is fully batched; the instance path threads
+    flood-fill segments through a sequential loop (instance.py)."""
 
     def __init__(self, model: ModelPack, scene: ScenePack, cfg: MatchConfig):
         # STOCS learns nothing and its float work is small, so exactness
@@ -217,8 +470,12 @@ class StocsEstimator:
         self.model = model
         self.scene = scene
         self.cfg = cfg
+        # mutable class-probability state: the instance path decays it,
+        # and scoring reads the decayed values
         self.class_prob = scene.class_prob
+        self.seg_masks = None
         self.last_poses = None
+        self._exists_bits = None
         # fixed per model and config: one host read here, none per run
         self._d2_implied = congruent.d2_test_implied(model.pos, cfg)
 
@@ -232,25 +489,51 @@ class StocsEstimator:
             return None
         return self.class_prob
 
+    def exists_bits(self):
+        """The bit-packed pair-existence matrix, built at first use: one
+        O(N^2) pass, after which every sampling round's PPF mask is a row
+        read. Used by `run` from 512 bases up and by every class-path
+        sweep; never by the instance path, whose rounds mask one base at a
+        time."""
+        if self._exists_bits is None:
+            self._exists_bits = sampling.build_exists_bits(
+                self.model.table, self.scene.pos, self.scene.normal,
+                self.cfg.ppf_tr_discretization,
+                self.cfg.ppf_rot_discretization,
+            )
+        return self._exists_bits
+
     def run(self, seed: Optional[int] = None, coarse_to_fine: bool = True,
             verbose: bool = True) -> StocsResult:
         cfg = self.cfg
-        if self.scene.has_edge:
-            raise NotImplementedError(
-                "scenes with an edge map take the instance path (flood-fill "
-                "sampling), which is not ported yet: ROADMAP.md queue 1, "
-                "'flood and instance'"
-            )
         dev = self.scene.pos.device
         key = rng.PRNGKey(cfg.seed if seed is None else seed)
         k_sample, k_cong = rng.split(key)
         timings = {}
 
         t0 = time.perf_counter()
-        bases = _phase_sample(
-            k_sample, self.model.table, self.scene.pos, self.scene.normal,
-            self.class_prob, self.scene.valid, cfg, cfg.number_of_bases,
-        )
+        self.seg_masks = None
+        unconv = torch.zeros((), dtype=torch.int32, device=dev)
+        if self.scene.has_edge:
+            inst = _phase_sample_instance(
+                k_sample, self.model.table, self.scene, self.class_prob,
+                cfg, cfg.number_of_bases,
+            )
+            # joins the one transfer below
+            unconv = (~inst.fill_converged).sum(dtype=torch.int32)
+            bases = sampling.SampledBases(
+                inst.indices, inst.invariant1, inst.invariant2, inst.valid
+            )
+            # the dispersion decay persists into scoring
+            self.class_prob = inst.class_prob
+            self.seg_masks = inst.seg_masks
+        else:
+            bits = self.exists_bits() if cfg.number_of_bases >= 512 else None
+            bases = _phase_sample(
+                k_sample, self.model.table, self.scene.pos, self.scene.normal,
+                self.class_prob, self.scene.valid, cfg, cfg.number_of_bases,
+                bits,
+            )
         _sync(dev)
         timings["sample_bases"] = time.perf_counter() - t0
 
@@ -285,15 +568,24 @@ class StocsEstimator:
         # one transfer for every host-side scalar and the winner rows
         safe_i = torch.clamp(idx, min=0).long()
         (h_idx, h_best, h_nb, h_nh, h_nsv, h_pmax, h_short, h_tot, best_t,
-         best_w) = _to_host(
+         best_w, h_unconv) = _to_host(
             idx, best, bases.valid.sum(dtype=torch.int32),
             poses.valid.sum(dtype=torch.int32), n_slot_valid,
             sets.pair_counts.max(), congruent.selection_shortfall(sets, cfg),
             sets.total_found.sum(), poses.transform[safe_i],
-            poses.world_transform[safe_i],
+            poses.world_transform[safe_i], unconv,
         )
         n_bases, n_hyp, n_slot_valid = int(h_nb), int(h_nh), int(h_nsv)
         pair_max, shortfall, total_sets = int(h_pmax), int(h_short), int(h_tot)
+        n_unconv = int(h_unconv)
+        if n_unconv:
+            warn(
+                f"{n_unconv} flood fills did not reach their BFS fixpoint in "
+                f"flood_fill_sweeps={cfg.flood_fill_sweeps} sweeps — "
+                f"segments under-fill; raise the sweep count for scenes "
+                f"with winding free-space regions",
+                n_unconverged=n_unconv, sweeps=cfg.flood_fill_sweeps,
+            )
         if verbose:
             print(f"Sampled {n_bases} bases in "
                   f"{timings['sample_bases']*1e6:.0f} us")
@@ -345,12 +637,7 @@ class StocsEstimator:
             timings["icp_refine"] = time.perf_counter() - t0
             if new_lcp >= best_lcp:
                 best_t = r_refined.astype(np.float32)
-                # world = T(+scene_centroid) centered T(-model_centroid)
-                a = np.eye(4, dtype=np.float32)
-                a[:3, 3] = r_sc
-                bmat = np.eye(4, dtype=np.float32)
-                bmat[:3, 3] = -r_mc
-                best_w = a @ best_t @ bmat
+                best_w = _world_of(best_t, r_sc, r_mc)
                 best_lcp = new_lcp
                 if verbose:
                     print(f"icp refined score: {best_lcp}")
@@ -360,6 +647,7 @@ class StocsEstimator:
         log_event(
             "stocs_run", best_lcp=best_lcp, best_index=best_index,
             bases=n_bases, hypotheses=n_hyp, device=str(dev),
+            unconverged_fills=n_unconv,
             timings_ms={k: round(v * 1e3, 3) for k, v in timings.items()},
         )
         return StocsResult(
@@ -376,6 +664,279 @@ class StocsEstimator:
                 "congruent_total": total_sets,
                 "pair_count_max": pair_max,
                 "selection_shortfall": shortfall,
+                # only the coarse-to-fine ladder leaves -1 (unscored)
+                # entries, which cluster_poses backfills
                 "coarse_to_fine": coarse_to_fine,
+                "unconverged_fills": n_unconv,
             },
         )
+
+    def run_sweep(self, total_bases: int, chunk: int = 2048,
+                  keep_per_chunk: Optional[int] = None,
+                  seed: Optional[int] = None,
+                  verbose: bool = True,
+                  checkpoint_path: Optional[str] = None,
+                  checkpoint_every: int = 8,
+                  stop_after_chunks: Optional[int] = None):
+        """Large hypothesis sweep: process `total_bases` bases in chunks of
+        `chunk` through the same phases, keep the top `keep_per_chunk`
+        scored poses of each chunk, and greedily cluster the pool at the
+        end.
+
+        Edge-mapped scenes run the instance path per chunk, with the
+        dispersion decay threaded across chunks (chunk ci+1's prior
+        reflects every base of chunks 0..ci), and each chunk is scored with
+        its sampling-time prior. The decayed prior stays on the estimator
+        afterwards, as after run(). Each chunk's segment masks are dropped.
+
+        Returns (best_lcp, best_world_transform, clustered_transforms,
+        clustered_lcp, stats). A `total_bases` that is not a multiple of
+        `chunk` is rounded up; stats report the bases processed.
+
+        keep_per_chunk None -> cfg.sweep_keep_per_chunk; 0 -> pool every
+        scored hypothesis slot.
+
+        `checkpoint_path`: persist the sweep state (pooled winners, chunk
+        cursor, decayed prior) every `checkpoint_every` chunks; a later
+        call with the same arguments resumes from the cursor and, because
+        chunk keys are fold_in(key0, ci), reproduces the uninterrupted
+        sweep bit for bit. The file is removed on completion. A mismatched
+        chunk, seed, keep or config raises. `stop_after_chunks` bounds how
+        many chunks this call processes: the call checkpoints, returns the
+        result of the pool so far, and sets stats["completed"] = False and
+        stats["next_chunk"].
+
+        The per-chunk counters stay on the device; the host reads them
+        once after the loop, and once per checkpoint."""
+        cfg = dataclasses.replace(self.cfg, number_of_bases=chunk)
+        dev = self.scene.pos.device
+        if keep_per_chunk is None:
+            keep_per_chunk = cfg.sweep_keep_per_chunk
+        seed_used = cfg.seed if seed is None else seed
+        key0 = rng.PRNGKey(seed_used)
+        n_chunks = -(-total_bases // chunk)
+        total_bases = n_chunks * chunk
+        use_instance = self.scene.has_edge
+
+        def i32(v):
+            return torch.tensor(v, dtype=torch.int32, device=dev)
+
+        pool_t, pool_w, pool_s = [], [], []
+        chunk_valid, chunk_slot_valid = [], []
+        pair_maxes, shortfalls, unconverged = [], [], []
+        start_chunk = 0
+        resumed_unconverged = 0
+        resumed_pair_max = 0
+        t_prev = 0.0
+        cfg_fp = _sweep_cfg_fingerprint(cfg) if checkpoint_path else ""
+        if checkpoint_path and os.path.exists(checkpoint_path):
+            state = _load_sweep_checkpoint(
+                checkpoint_path, chunk=chunk, seed=seed_used,
+                kp=keep_per_chunk, cfg_fp=cfg_fp, use_instance=use_instance,
+                device=dev,
+            )
+            start_chunk = state["next_chunk"]
+            if start_chunk > n_chunks:
+                raise ValueError(
+                    f"sweep checkpoint {checkpoint_path} has already "
+                    f"processed {start_chunk} chunks; this call asks for "
+                    f"only {n_chunks} — raise total_bases (resuming with a "
+                    f"larger budget extends the sweep)"
+                )
+            if start_chunk:
+                pool_s.append(state["pool_s"].reshape(-1))
+                pool_t.append(state["pool_t"].reshape(-1, 4, 4))
+                pool_w.append(state["pool_w"].reshape(-1, 4, 4))
+                # the per-chunk counts survive the round trip so that the
+                # overflow warning keeps its per-chunk maximum
+                chunk_valid.extend(state["chunk_valid"].reshape(-1))
+                chunk_slot_valid.extend(state["chunk_slot_valid"].reshape(-1))
+            resumed_unconverged = state["unconverged"]
+            resumed_pair_max = state["pair_max"]
+            t_prev = state["elapsed"]
+            if state["prob_decayed"]:
+                self.class_prob = state["class_prob"]
+            log_event("stocs_sweep_resume", path=checkpoint_path,
+                      next_chunk=start_chunk, n_chunks=n_chunks)
+            if verbose:
+                print(f"sweep: resumed from {checkpoint_path} at chunk "
+                      f"{start_chunk}/{n_chunks}")
+
+        def total(parts, base=0):
+            """0-dim int32: `base` plus the sum of the device counters."""
+            return torch.stack(parts).sum(dtype=torch.int32) + base if parts else i32(base)
+
+        def running_pair_max():
+            if not pair_maxes:
+                return i32(resumed_pair_max)
+            return torch.clamp(torch.stack(pair_maxes).max(), min=resumed_pair_max)
+
+        def save_ckpt(next_chunk):
+            _save_sweep_checkpoint(
+                checkpoint_path, next_chunk=next_chunk, chunk=chunk,
+                seed=seed_used, kp=keep_per_chunk, cfg_fp=cfg_fp,
+                use_instance=use_instance,
+                # a resumed pool's first entry is flat [start * kp]; one
+                # concatenation and reshape restore the per-chunk layout
+                pool_s=torch.cat(pool_s).reshape(next_chunk, -1),
+                pool_t=torch.cat(pool_t).reshape(next_chunk, -1, 4, 4),
+                pool_w=torch.cat(pool_w).reshape(next_chunk, -1, 4, 4),
+                chunk_valid=torch.stack(chunk_valid),
+                chunk_slot_valid=torch.stack(chunk_slot_valid),
+                unconverged=total(unconverged, resumed_unconverged),
+                elapsed=t_prev + (time.perf_counter() - t_start),
+                prob_decayed=self.class_prob is not self.scene.class_prob,
+                class_prob=self.class_prob,
+                pair_max=running_pair_max(),
+            )
+
+        t_start = time.perf_counter()
+        bits = None if use_instance else self.exists_bits()
+        cap = cfg.score_compact_cap
+        slots = chunk * cfg.maximum_congruent_sets
+        stopped_at = None
+        for ci in range(start_chunk, n_chunks):
+            key = rng.fold_in(key0, ci)
+            k_sample, k_cong = rng.split(key)
+            if use_instance:
+                inst = _phase_sample_instance(
+                    k_sample, self.model.table, self.scene, self.class_prob,
+                    cfg, chunk,
+                )
+                bases = sampling.SampledBases(
+                    inst.indices, inst.invariant1, inst.invariant2, inst.valid
+                )
+                # thread the decay: the next chunk samples (and this chunk
+                # scores) under the prior every previous base has decayed
+                self.class_prob = inst.class_prob
+                unconverged.append((~inst.fill_converged).sum(dtype=torch.int32))
+                del inst
+            else:
+                bases = _phase_sample(
+                    k_sample, self.model.table, self.scene.pos,
+                    self.scene.normal, self.class_prob, self.scene.valid,
+                    cfg, chunk, bits,
+                )
+            sets = _run_congruent(k_cong, self.model, self.scene, bases, cfg,
+                                  self._d2_implied)
+            poses, n_slot_valid = _phase_fit(
+                self.scene.pos, _pair_ep_of(self.model),
+                self.scene.centroid, self.model.centroid, bases, sets,
+                compact_cap=cap,
+            )
+            pre_n = (torch.clamp(n_slot_valid, max=cap)
+                     if (cap and slots > cap) else None)
+            scores, _i, _b = _phase_score(
+                poses, self.model, self.scene, self._score_prob(), cfg, True,
+                precompacted_count=pre_n,
+            )
+            kp = keep_per_chunk or scores.shape[0]
+            # values descending, ties by ascending index, on every device
+            top, idx = scoring._top_k(scores, min(kp, scores.shape[0]))
+            pool_s.append(top)
+            pool_t.append(poses.transform[idx])
+            pool_w.append(poses.world_transform[idx])
+            # chunk_valid = fit-valid (the hypotheses stat);
+            # chunk_slot_valid = congruent-valid before the fit-time
+            # compaction (the overflow warning)
+            chunk_valid.append(poses.valid.sum(dtype=torch.int32))
+            chunk_slot_valid.append(n_slot_valid)
+            pair_maxes.append(sets.pair_counts.max())
+            shortfalls.append(congruent.selection_shortfall(sets, cfg))
+            done_this_call = ci + 1 - start_chunk
+            if (stop_after_chunks is not None
+                    and done_this_call >= stop_after_chunks
+                    and ci + 1 < n_chunks):
+                stopped_at = ci + 1
+                if checkpoint_path:
+                    save_ckpt(ci + 1)
+                break
+            if (checkpoint_path and ci + 1 < n_chunks
+                    and done_this_call % max(1, checkpoint_every) == 0):
+                save_ckpt(ci + 1)
+        completed = stopped_at is None
+        # one transfer for the loop's deferred device-side counters
+        h_unconv, h_nvs, h_slvs, h_pmx, h_short = _to_host(
+            total(unconverged, resumed_unconverged),
+            torch.stack(chunk_valid) if chunk_valid else i32([0]),
+            torch.stack(chunk_slot_valid) if chunk_slot_valid else i32([0]),
+            running_pair_max(), total(shortfalls),
+        )
+        n_unconverged = int(h_unconv)
+        if n_unconverged:
+            warn(
+                f"{n_unconverged} flood fills across the sweep did not "
+                f"reach their BFS fixpoint in flood_fill_sweeps="
+                f"{cfg.flood_fill_sweeps} sweeps — segments under-fill",
+                n_unconverged=n_unconverged, sweeps=cfg.flood_fill_sweeps,
+            )
+        n_hyp_total = int(h_nvs.sum())
+        # the overflow check uses the congruent-valid counts from before
+        # the compaction (fit compacts to the cap, so fit-valid counts
+        # never exceed it)
+        slot_max = int(h_slvs.max())
+        if cap and slots > cap and slot_max > cap:
+            warn(
+                f"a chunk produced {slot_max} congruent-valid "
+                f"hypothesis slots, over score_compact_cap={cap}; overflow "
+                f"was not fitted or scored — raise the cap for full recall",
+                n_valid=slot_max, cap=cap,
+            )
+        pair_max = int(h_pmx)
+        if pair_max > cfg.max_pairs_per_bin:
+            warn(
+                f"a PPF bin held {pair_max} pairs; only "
+                f"max_pairs_per_bin={cfg.max_pairs_per_bin} were matched — "
+                f"raise the cap for full recall",
+                pair_max=pair_max, cap=cfg.max_pairs_per_bin,
+            )
+        if int(h_short):
+            warn(
+                f"{int(h_short)} saturated bases kept fewer than "
+                f"maximum_congruent_sets={cfg.maximum_congruent_sets} sets "
+                f"after the exact-cone re-check — raise "
+                f"congruent_cone_oversample for full selection",
+                n_short=int(h_short),
+                oversample=cfg.congruent_cone_oversample,
+            )
+        if completed and checkpoint_path and os.path.exists(checkpoint_path):
+            os.remove(checkpoint_path)
+        processed = (stopped_at if stopped_at is not None else n_chunks) * chunk
+        extra = {"completed": completed}
+        if pair_maxes or resumed_pair_max:
+            # exposed so that callers can fail on a truncation that costs
+            # recall instead of relying on the warning text
+            extra["pair_count_max"] = pair_max
+        if not completed:
+            extra["next_chunk"] = stopped_at
+        return finish_sweep_pool(
+            torch.cat(pool_s), torch.cat(pool_t), torch.cat(pool_w),
+            self.model, self.scene, self._score_prob(), cfg,
+            total_bases=processed, n_hyp_total=n_hyp_total,
+            # resumed time counts: finish measures now - t_start
+            t_start=t_start - t_prev, verbose=verbose, extra_stats=extra,
+        )
+
+    def cluster_poses(self, result: StocsResult):
+        """Symmetry-aware greedy clustering of the scored hypothesis set.
+        Returns (world_transforms [K, 4, 4], lcp [K]) of the cluster
+        representatives.
+
+        A coarse-to-fine run stores an exact LCP only for the ladder's
+        leaders (-1 elsewhere). To keep the whole pool clusterable, the
+        other entries are filled with their dense-field LCP estimate (the
+        ladder's own mid-stage scorer); leaders keep their exact scores.
+        Whether to fill is read from the result's stats, not from the
+        device."""
+        poses = result.poses
+        lcp = poses.lcp
+        if result.stats.get("coarse_to_fine", True):
+            field_scores = _phase_field_scores(
+                poses, self.model, self.scene, self._score_prob(), self.cfg
+            )
+            lcp = torch.where(lcp >= 0, lcp, field_scores)
+        # prune against the raw pool best: result.best_lcp may be the
+        # ICP-refined winner, which is no member of the pool
+        raw_best = torch.where(poses.valid, lcp, -torch.inf).max()
+        return _cluster_pool(poses.world_transform, lcp, poses.valid,
+                             raw_best, self.cfg)

@@ -1,7 +1,7 @@
 """Point-to-plane ICP refinement of the winning pose.
 
-Counterpart of ``model_matching_tpu/icp.py`` (``point_to_plane_icp`` and
-``refine_pose``): each iteration finds restricted-NN correspondences in
+Counterpart of ``model_matching_tpu/icp.py`` (``point_to_plane_icp``,
+``trimmed_icp`` and ``refine_pose``): each iteration finds restricted-NN correspondences in
 the scene's ICP grid and solves the small-angle linearization
 
     minimize sum_i ((R p_i + t - q_i) . n_i)^2,  R ~ I + [w]_x
@@ -60,6 +60,39 @@ def point_to_plane_icp(source_pos, source_valid, target_pos, target_normal,
         inc = _solve_point_to_plane(moved, target_pos[safe], target_normal[safe],
                                     found.to(moved.dtype))
         inc = torch.where(found.any(), inc, eye4)
+        offset = inc @ offset
+    return offset
+
+
+def trimmed_icp(source_pos, source_valid, target_pos, target_normal,
+                grid: NeighborGrid, max_corr_dist: float = 0.035,
+                iterations: int = 5, trim_fraction: float = 0.8):
+    """Trimmed point-to-plane ICP: each iteration keeps only the best
+    `trim_fraction` of the correspondences by absolute residual (at least
+    6), which makes the fit robust to partial overlap. Returns the 4x4
+    offset; an iteration with fewer than 6 kept correspondences adds
+    nothing."""
+    eye4 = torch.eye(4, dtype=source_pos.dtype, device=source_pos.device)
+    inf = torch.tensor(torch.inf, dtype=source_pos.dtype, device=source_pos.device)
+    frac = torch.tensor(trim_fraction, dtype=torch.float32, device=source_pos.device)
+    offset = eye4
+    for _ in range(iterations):
+        moved = source_pos @ offset[:3, :3].T + offset[:3, 3]
+        idx, _d2 = query_restricted_nn(grid, moved, target_pos, max_corr_dist)
+        found = (idx >= 0) & source_valid
+        safe = torch.clamp(idx, min=0).long()
+        tgt = target_pos[safe]
+        nrm = target_normal[safe]
+        res = torch.where(found, torch.abs(((tgt - moved) * nrm).sum(-1)), inf)
+        # a float32 product truncated, at least 6
+        n_keep = torch.clamp(
+            (found.sum().to(torch.float32) * frac).to(torch.int32), min=6)
+        # residual threshold = the n_keep-th smallest (inf for the unfound)
+        order = torch.sort(res).values
+        thresh = order[torch.clamp(n_keep, max=res.shape[0] - 1).long()]
+        w = (found & (res <= thresh)).to(moved.dtype)
+        inc = _solve_point_to_plane(moved, tgt, nrm, w)
+        inc = torch.where(w.sum() >= 6, inc, eye4)
         offset = inc @ offset
     return offset
 

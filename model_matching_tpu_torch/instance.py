@@ -1,0 +1,323 @@
+"""Instance-conditional base sampling: the edge-aware sequential path.
+
+Counterpart of ``model_matching_tpu/instance.py``. It differs from the
+class path by (a) decaying the class probability of points inside the
+previous base's segment by `dispersion`, a cross-base mutation that also
+changes the LCP weights scoring reads later; (b) pruning points on edges;
+(c) flood-filling a segmentation mask around point 1 (bounded by the edge
+map and the largest PPF-feasible pixel distance) and restricting the
+remaining rounds to it, with a cross-base cache of masks keyed by seed
+pixel (a [B + 1, H, W] buffer, written row by row in place).
+
+The cross-base dependence makes the path sequential: one Python loop over
+bases with the decayed probabilities, the previous segment, the claim
+buffer and the mask cache as state. PyTorch compiles no trace, so the JAX
+package's whole-scan sampler and its host-driven stepper are one loop
+here (``sample_instance_bases`` and ``sample_instance_bases_stepwise``
+give the same outputs); the Gumbel noise of a block of bases is made in
+one batch. ``sample_instance_bases_blocked`` is the block-parallel variant
+with its documented divergences.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from . import flood, rng, sampling
+from .ops import invariants
+from .ops.fp import sqrt_rn
+from .ppf_table import PPFTable
+
+
+class InstanceSamples(NamedTuple):
+    indices: torch.Tensor      # [B, 4] reordered base indices
+    invariant1: torch.Tensor   # [B]
+    invariant2: torch.Tensor   # [B]
+    valid: torch.Tensor        # [B]
+    class_prob: torch.Tensor   # [N] final decayed class probabilities
+    seg_masks: torch.Tensor    # [B+1, H, W] bool — per-base segments (0 unused)
+    fill_converged: torch.Tensor  # [B] bool — flood fill reached its fixpoint
+                                  # (False = flood_fill_sweeps too small)
+
+
+# one categorical draw per row of [K, N] weights with that row's own noise
+_draw_rows = sampling._categorical_rows_with_noise
+
+
+def _pixel_distance(pixel, seed_rc):
+    """[K, N] float32 euclidean distance of every point's pixel to each
+    seed pixel; the squares are exact integers, the root correctly
+    rounded."""
+    d = (pixel[None, :, :] - seed_rc[:, None, :]).to(torch.float32)
+    return sqrt_rn(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1])
+
+
+def _base_keys(key, num_bases):
+    """[B, 4, 2] round keys: split(key, B), each split in 4."""
+    return rng.split(rng.split(key, num_bases), 4)
+
+
+def _finish(pos, raws, oks, class_prob, masks, fills) -> InstanceSamples:
+    # the JAX package reorders these bases op by op, outside any compiled
+    # program: uncontracted rounding picks its ordering among the ties
+    perm, inv1, inv2, _d = invariants.reorder_base(pos[raws.long()],
+                                                   contracted=False)
+    return InstanceSamples(
+        indices=torch.gather(raws, -1, perm), invariant1=inv1,
+        invariant2=inv2, valid=oks, class_prob=class_prob, seg_masks=masks,
+        fill_converged=fills,
+    )
+
+
+def sample_instance_bases_stepwise(
+    key: torch.Tensor,
+    table: PPFTable,
+    pos, normal, class_prob0, edge_prob, pixel, valid, edge_free,
+    num_bases: int,
+    dispersion: float,
+    tr_disc: int,
+    rot_disc: int,
+    plane_threshold: float,
+    min_distance_base: float,
+    internal_angle_threshold: float,
+    flood_max_iters: int = 512,
+    block: int = 10,
+    exists_bits=None,
+    flood_sweeps=None,
+    cache_branch: str = "read",
+) -> InstanceSamples:
+    """The sequential sampler. `block` is the number of bases whose Gumbel
+    noise is generated at once ([block * 4, N] floats); it changes no
+    output. The JAX package's stepper pads the last block with inert steps;
+    this loop runs none.
+
+    A base whose seed pixel was claimed by an earlier base reuses that
+    base's cached mask; otherwise it flood-fills. `cache_branch` picks how
+    the loop takes that data-dependent branch: "read" reads the claim on
+    the host (one device sync per base, a fill only when needed), "select"
+    fills always and selects with torch.where (no sync). Same outputs."""
+    if cache_branch not in ("read", "select"):
+        raise ValueError(f"cache_branch must be 'read' or 'select', got {cache_branch!r}")
+    dev = pos.device
+    h, w = edge_free.shape
+    n = pos.shape[0]
+    arange_n = torch.arange(n, dtype=torch.int32, device=dev)
+    disp = torch.tensor(dispersion, dtype=torch.float32, device=dev)
+    true = torch.ones((), dtype=torch.bool, device=dev)
+    prow, pcol = pixel[:, 0].long(), pixel[:, 1].long()
+
+    class_prob = class_prob0.clone()
+    prev_in = torch.zeros(n, dtype=torch.bool, device=dev)   # in the previous segment
+    seg_buffer = torch.zeros((h, w), dtype=torch.int32, device=dev)
+    masks = torch.zeros((num_bases + 1, h, w), dtype=torch.bool, device=dev)
+    keys = _base_keys(key, num_bases)
+    raws, oks, fills = [], [], []
+    noise = None
+    for b in range(num_bases):
+        if b % block == 0:
+            noise = rng.gumbel_rows(
+                keys[b:b + block].reshape(-1, 2), n, dev).reshape(-1, 4, 1, n)
+        g = noise[b % block]
+        base_num = b + 1
+
+        # cross-base dispersion decay inside the previous segment; this
+        # mutates the carried class_prob, one float32 multiply a base
+        class_prob = torch.where(prev_in & valid, class_prob * disp, class_prob)
+
+        probs = torch.where(valid, class_prob, 0.0)
+        probs = flood.prune_edge_points(probs, edge_prob)[None, :]
+        idx1, ok1 = _draw_rows(g[0], probs)
+
+        # round-1 PPF mask and the largest feasible pixel distance
+        exists1 = sampling._pairwise_exists(
+            table, pos, normal, idx1, tr_disc, rot_disc, exists_bits)
+        probs = torch.where(exists1 & (arange_n != idx1[:, None]), probs, 0.0)
+        seed_rc = pixel[idx1.long()]                         # [1, 2]
+        pix_d = _pixel_distance(pixel, seed_rc)
+        max_pix_dist = torch.where(probs > 0, pix_d, 0.0).amax(dim=1)
+
+        # segmentation mask: the cached segment if the seed pixel was
+        # claimed by an earlier base, else a flood fill
+        cached_id = seg_buffer[seed_rc[0, 0].long(), seed_rc[0, 1].long()]
+
+        def fresh():
+            m, conv = flood.flood_fill(
+                seed_rc, edge_free, max_pix_dist, max_iters=flood_max_iters,
+                fixed_sweeps=flood_sweeps, return_converged=True)
+            return m[0], conv[0]
+
+        if cache_branch == "read":
+            hit = int(cached_id)                             # host read
+            if hit:
+                seg_mask, fill_ok = masks[hit], true
+            else:
+                seg_mask, fill_ok = fresh()
+                seg_buffer = torch.where(seg_mask, base_num, seg_buffer)
+        else:
+            m, conv = fresh()
+            hit = cached_id != 0
+            seg_mask = torch.where(
+                hit, masks.index_select(0, cached_id.long().reshape(1))[0], m)
+            seg_buffer = torch.where(m & ~hit, base_num, seg_buffer)
+            fill_ok = hit | conv
+        masks[base_num] = seg_mask
+
+        prev_in = seg_mask[prow, pcol]
+        probs = torch.where(prev_in[None, :], probs, 0.0)
+
+        idx2, ok2 = _draw_rows(g[1], probs)
+        keep2 = sampling.round2_keep_mask(
+            table, pos, normal, idx1, idx2, tr_disc, rot_disc,
+            internal_angle_threshold, exists_bits)
+        probs = torch.where(keep2, probs, 0.0)
+
+        idx3, ok3 = _draw_rows(g[2], probs)
+        keep3 = sampling.round3_keep_mask(
+            table, pos, normal, idx1, idx2, idx3, tr_disc, rot_disc,
+            plane_threshold, min_distance_base, exists_bits)
+        probs = torch.where(keep3, probs, 0.0)
+
+        idx4, ok4 = _draw_rows(g[3], probs)
+
+        raws.append(torch.cat([idx1, idx2, idx3, idx4]))
+        oks.append((ok1 & ok2 & ok3 & ok4)[0])
+        fills.append(fill_ok)
+    return _finish(pos, torch.stack(raws), torch.stack(oks), class_prob,
+                   masks, torch.stack(fills))
+
+
+def sample_instance_bases(
+    key: torch.Tensor,
+    table: PPFTable,
+    pos: torch.Tensor,          # [N, 3] centered scene positions
+    normal: torch.Tensor,       # [N, 3]
+    class_prob0: torch.Tensor,  # [N] initial class probabilities
+    edge_prob: torch.Tensor,    # [N] per-point edge probability
+    pixel: torch.Tensor,        # [N, 2] (row, col) source pixels
+    valid: torch.Tensor,        # [N]
+    edge_free: torch.Tensor,    # [H, W] bool — flood fill may enter
+    num_bases: int,
+    dispersion: float,
+    tr_disc: int,
+    rot_disc: int,
+    plane_threshold: float,
+    min_distance_base: float,
+    internal_angle_threshold: float,
+    flood_max_iters: int = 512,
+    exists_bits=None,
+    flood_sweeps=None,
+    cache_branch: str = "read",
+) -> InstanceSamples:
+    """The JAX package's whole-scan sampler: the same loop as
+    sample_instance_bases_stepwise."""
+    return sample_instance_bases_stepwise(
+        key, table, pos, normal, class_prob0, edge_prob, pixel, valid,
+        edge_free, num_bases, dispersion, tr_disc, rot_disc, plane_threshold,
+        min_distance_base, internal_angle_threshold,
+        flood_max_iters=flood_max_iters, block=64, exists_bits=exists_bits,
+        flood_sweeps=flood_sweeps, cache_branch=cache_branch,
+    )
+
+
+def sample_instance_bases_blocked(
+    key: torch.Tensor,
+    table: PPFTable,
+    pos, normal, class_prob0, edge_prob, pixel, valid, edge_free,
+    num_bases: int,
+    dispersion: float,
+    tr_disc: int,
+    rot_disc: int,
+    plane_threshold: float,
+    min_distance_base: float,
+    internal_angle_threshold: float,
+    flood_max_iters: int = 512,
+    block_size: int = 8,
+    exists_bits=None,
+    flood_sweeps=None,
+) -> InstanceSamples:
+    """Block-parallel variant: `block_size` bases are sampled at once —
+    round-1 draws in parallel from the same prior, flood fills batched as
+    one [K, H, W] program, rounds 2-4 as [K, N] masked draws — and the
+    dispersion decay is applied once per block (dispersion ** count of the
+    block's segments covering each point).
+
+    Documented divergences from the sequential sampler: (a) bases within
+    one block do not see each other's decay, so intra-block draws repel
+    less than the sequential chain (the cumulative decay exponent over a
+    full run is the same: segments of bases 1..B-1 each decay once); (b)
+    the seed-pixel mask cache is skipped: when a seed lands inside an
+    earlier base's claimed segment the sequential path substitutes that
+    base's mask, while this path always fills fresh from the current seed.
+    With dispersion == 1.0 and no divergent cache hit the draws match the
+    sequential sampler exactly (per-base keys are derived identically).
+    The last block is padded with inert steps that reuse the last key."""
+    dev = pos.device
+    h, w = edge_free.shape
+    n = pos.shape[0]
+    k_block = block_size
+    arange_n = torch.arange(n, dtype=torch.int32, device=dev)
+    disp = torch.tensor(dispersion, dtype=torch.float32, device=dev)
+    prow, pcol = pixel[:, 0].long(), pixel[:, 1].long()
+
+    nb = -(-num_bases // k_block)
+    total = nb * k_block
+    keys = _base_keys(key, num_bases)
+    if total > num_bases:
+        keys = torch.cat([keys, keys[-1:].expand(total - num_bases, 4, 2)])
+    steps = torch.arange(total, device=dev)
+    # the last real base's segment never decays anyone (sequential parity)
+    decays = steps < num_bases - 1
+
+    class_prob = class_prob0.clone()
+    raws, oks, fills = [], [], []
+    masks_out = [torch.zeros((1, h, w), dtype=torch.bool, device=dev)]
+    for i in range(nb):
+        blk = slice(i * k_block, (i + 1) * k_block)
+        g = rng.gumbel_rows(keys[blk].reshape(-1, 2), n, dev).reshape(k_block, 4, n)
+
+        probs0 = torch.where(valid, class_prob, 0.0)
+        probs0 = flood.prune_edge_points(probs0, edge_prob).expand(k_block, n)
+
+        idx1, ok1 = _draw_rows(g[:, 0], probs0)
+        exists1 = sampling._pairwise_exists(
+            table, pos, normal, idx1, tr_disc, rot_disc, exists_bits)
+        probs = torch.where(exists1 & (arange_n[None, :] != idx1[:, None]),
+                            probs0, 0.0)
+        seed_rc = pixel[idx1.long()]                          # [K, 2]
+        pix_d = _pixel_distance(pixel, seed_rc)
+        max_pix_dist = torch.where(probs > 0, pix_d, 0.0).amax(dim=1)
+
+        masks, fill_ok = flood.flood_fill(
+            seed_rc, edge_free, max_pix_dist, max_iters=flood_max_iters,
+            fixed_sweeps=flood_sweeps, return_converged=True)   # [K, H, W]
+
+        in_seg = masks[:, prow, pcol]                           # [K, N]
+        probs = torch.where(in_seg, probs, 0.0)
+
+        idx2, ok2 = _draw_rows(g[:, 1], probs)
+        probs = torch.where(sampling.round2_keep_mask(
+            table, pos, normal, idx1, idx2, tr_disc, rot_disc,
+            internal_angle_threshold, exists_bits), probs, 0.0)
+        idx3, ok3 = _draw_rows(g[:, 2], probs)
+        probs = torch.where(sampling.round3_keep_mask(
+            table, pos, normal, idx1, idx2, idx3, tr_disc, rot_disc,
+            plane_threshold, min_distance_base, exists_bits), probs, 0.0)
+        idx4, ok4 = _draw_rows(g[:, 3], probs)
+
+        # block-boundary decay: a base's segment decays the prior once,
+        # when the sequential chain would (at the start of the following
+        # base); padding steps have no follower either
+        counts = (in_seg & decays[blk, None]).to(torch.float32).sum(dim=0)
+        class_prob = torch.where(valid, class_prob * torch.pow(disp, counts),
+                                 class_prob)
+        raws.append(torch.stack([idx1, idx2, idx3, idx4], dim=1))
+        oks.append(ok1 & ok2 & ok3 & ok4)
+        fills.append(fill_ok)
+        masks_out.append(masks)
+    return _finish(
+        pos, torch.cat(raws)[:num_bases], torch.cat(oks)[:num_bases],
+        class_prob, torch.cat(masks_out)[:num_bases + 1],
+        torch.cat(fills)[:num_bases],
+    )

@@ -8,6 +8,11 @@ segment distance. Batched over leading dims.
 The 12 orderings come in groups with mathematically equal segment
 distances, so the last ULP decides which one wins: the arithmetic follows
 the JAX package's contracted rounding (ops/fp.py) to pick its ordering.
+The JAX package's instance sampler reorders its bases outside any compiled
+program, op by op, where nothing is contracted across ops:
+`contracted=False` rounds every product and sum on its own, as that path
+does (only the final norm, one compiled unit there too, stays a fused
+chain). The two modes can pick different orderings of the same four points.
 """
 
 from __future__ import annotations
@@ -20,23 +25,36 @@ from .fp import dot3, fma, sqrt_rn
 _EPS = 1e-4
 
 
-def segment_invariants(p1, p2, q1, q2):
+def _sum3(x, y):
+    """Sum over the last axis (size 3) of x * y, every product and sum
+    rounded to float32 on its own, left to right."""
+    p = x * y
+    return (p[..., 0] + p[..., 1]) + p[..., 2]
+
+
+def segment_invariants(p1, p2, q1, q2, contracted: bool = True):
     """Closest points between segments [p1,p2] and [q1,q2]. Returns
     (distance, invariant1, invariant2), the invariants being the clamped
     parametric positions of the closest points, snapped to 0 below 1e-4."""
     u = p2 - p1
     v = q2 - q1
     w = p1 - q1
-    a = dot3(u, u)
-    b = dot3(u, v)
-    c = dot3(v, v)
-    d = dot3(u, w)
-    e = dot3(v, w)
-    f = fma(a, c, -(b * b))
+    dot = dot3 if contracted else _sum3
+    a = dot(u, u)
+    b = dot(u, v)
+    c = dot(v, v)
+    d = dot(u, w)
+    e = dot(v, w)
+    if contracted:
+        f = fma(a, c, -(b * b))
+        s1_raw = fma(b, e, -(c * d))
+        t1_raw = fma(a, e, -(b * d))
+    else:
+        f = a * c - b * b
+        s1_raw = b * e - c * d
+        t1_raw = a * e - b * d
 
     parallel = f < _EPS
-    s1_raw = fma(b, e, -(c * d))
-    t1_raw = fma(a, e, -(b * d))
     s_neg = ~parallel & (s1_raw < 0.0)
     s_big = ~parallel & (s1_raw >= 0.0) & (s1_raw > f)
 
@@ -68,7 +86,11 @@ def segment_invariants(p1, p2, q1, q2):
 
     inv1 = torch.where(torch.abs(s1) < _EPS, zero, s1 / s2)
     inv2 = torch.where(torch.abs(t1) < _EPS, zero, t1 / t2)
-    r = fma(-inv2[..., None], v, fma(inv1[..., None], u, w))
+    if contracted:
+        r = fma(-inv2[..., None], v, fma(inv1[..., None], u, w))
+    else:
+        r = (w + inv1[..., None] * u) - inv2[..., None] * v
+    # jnp.linalg.norm is one compiled unit even op by op: contracted
     return sqrt_rn(dot3(r, r)), inv1, inv2
 
 
@@ -93,14 +115,15 @@ def _permutations_4() -> np.ndarray:
 _PERMS = _permutations_4()
 
 
-def reorder_base(base_pos: torch.Tensor):
+def reorder_base(base_pos: torch.Tensor, contracted: bool = True):
     """Reorder 4-point bases [..., 4, 3] to the permutation whose segments
     cross closest. Returns (perm [..., 4] — indices into the input order,
     invariant1 [...], invariant2 [...], min_distance [...])."""
     perms = torch.from_numpy(_PERMS).to(base_pos.device)
     cand = base_pos[..., perms, :]                 # [..., 12, 4, 3]
     dist, inv1, inv2 = segment_invariants(
-        cand[..., 0, :], cand[..., 1, :], cand[..., 2, :], cand[..., 3, :]
+        cand[..., 0, :], cand[..., 1, :], cand[..., 2, :], cand[..., 3, :],
+        contracted=contracted,
     )
     # first minimum, like the reference's strict-less scan
     best = torch.argmin(dist, dim=-1)

@@ -69,9 +69,25 @@ def _hash_iota(key: torch.Tensor, n: int, device):
     return threefry2x32(k1, k2, torch.zeros_like(lo), lo)
 
 
+def _hash_iota_batched(keys: torch.Tensor, n: int, device):
+    """threefry2x32 of the counters (0, i), i < n, under every key of a
+    [K, 2] batch -> two [K, n] tensors on `device` (no host read of the
+    key words)."""
+    if keys.dim() != 2 or keys.shape[1] != 2:
+        raise ValueError(f"expected keys of shape [K, 2], got {tuple(keys.shape)}")
+    k = keys.to(device)
+    lo = torch.arange(n, dtype=torch.int64, device=device)[None, :]
+    return threefry2x32(k[:, 0:1], k[:, 1:2], torch.zeros_like(lo), lo)
+
+
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """[num, 2] keys: key i is threefry2x32(key, (0, i))."""
-    b1, b2 = _hash_iota(key, num, "cpu")
+    """[num, 2] keys: key i is threefry2x32(key, (0, i)). A [B, 2] batch of
+    keys gives [B, num, 2], each row split on its own
+    (jax.vmap(lambda k: jax.random.split(k, num)))."""
+    if key.dim() == 2:
+        b1, b2 = _hash_iota_batched(key, num, "cpu")
+    else:
+        b1, b2 = _hash_iota(key, num, "cpu")
     return torch.stack([b1, b2], dim=-1)
 
 
@@ -101,10 +117,7 @@ def bits_batched(keys: torch.Tensor, device="cpu") -> torch.Tensor:
     return b1 ^ b2
 
 
-def uniform(key, shape=(), minval=0.0, maxval=1.0, device="cpu"):
-    """float32 uniform in [minval, maxval): 23 random mantissa bits under
-    the exponent of 1.0, minus 1, scaled (jax's expression)."""
-    b = bits(key, shape, device)
+def _uniform_from_bits(b, minval, maxval, device):
     fb = (b >> 9) | 0x3F800000
     floats = fb.to(torch.int32).view(torch.float32) - 1.0
     lo = torch.tensor(minval, dtype=torch.float32, device=device)
@@ -112,10 +125,24 @@ def uniform(key, shape=(), minval=0.0, maxval=1.0, device="cpu"):
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 
+def uniform(key, shape=(), minval=0.0, maxval=1.0, device="cpu"):
+    """float32 uniform in [minval, maxval): 23 random mantissa bits under
+    the exponent of 1.0, minus 1, scaled (jax's expression)."""
+    return _uniform_from_bits(bits(key, shape, device), minval, maxval, device)
+
+
 def gumbel(key, shape=(), device="cpu"):
     """float32 Gumbel noise, jax's "low" mode: -log(-log(u)), u uniform in
     [tiny, 1)."""
     u = uniform(key, shape, _FLOAT32_TINY, 1.0, device)
+    return -torch.log(-torch.log(u))
+
+
+def gumbel_rows(keys: torch.Tensor, n: int, device="cpu"):
+    """[K, n] float32 Gumbel noise, row i equal to gumbel(keys[i], (1, n))
+    (what jax.vmap of a [1, n] draw over a batch of keys gives)."""
+    b1, b2 = _hash_iota_batched(keys, n, device)
+    u = _uniform_from_bits(b1 ^ b2, _FLOAT32_TINY, 1.0, device)
     return -torch.log(-torch.log(u))
 
 

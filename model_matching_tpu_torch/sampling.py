@@ -3,9 +3,9 @@
 Counterpart of the class path of ``model_matching_tpu/sampling.py``: all B
 bases run as one [B, N] tensor program of four masked categorical rounds,
 with the same threefry keys (rng.py), so the port draws the JAX package's
-bases. The bit-packed existence matrix (``build_exists_bits``, used by the
-JAX estimator from 512 bases up) is not ported yet; existence checks hash
-the packed PPF keys directly.
+bases. Existence checks hash the packed PPF keys directly, or read rows of
+the bit-packed pair-existence matrix (``build_exists_bits``) when one is
+given: the same masks, one row read per anchor.
 """
 
 from __future__ import annotations
@@ -31,27 +31,74 @@ class SampledBases(NamedTuple):
     valid: torch.Tensor       # [B] bool
 
 
-def _categorical_rows(key, probs):
-    """Per-row categorical draw over [B, N] weights; rows with zero mass are
-    flagged invalid."""
+def _row_logits(probs):
+    """([B, N] logits of the weights, [B] rows with mass): zero weights get
+    -inf, and a row without mass (flagged invalid) all zeros, so that a
+    draw never sees an all -inf row."""
     ok = probs.sum(dim=-1) > 0
     logits = torch.where(
         probs > 0, torch.log(torch.clamp(probs, min=1e-30)), -torch.inf
     )
-    # keep rows finite so the draw never sees an all -inf row
-    safe_logits = torch.where(ok[:, None], logits, 0.0)
-    return rng.categorical(key, safe_logits).to(torch.int32), ok
+    return torch.where(ok[:, None], logits, 0.0), ok
 
 
-def _pairwise_exists(table: PPFTable, pos, normal, anchor_idx, tr, rot):
+def _categorical_rows(key, probs):
+    """Per-row categorical draw over [B, N] weights under one key; rows
+    with zero mass are flagged invalid."""
+    logits, ok = _row_logits(probs)
+    return rng.categorical(key, logits).to(torch.int32), ok
+
+
+def _categorical_rows_with_noise(noise, probs):
+    """The same draw with the Gumbel noise given, [B, N] (a key per row:
+    rng.gumbel_rows)."""
+    logits, ok = _row_logits(probs)
+    return torch.argmax(noise + logits, dim=-1).to(torch.int32), ok
+
+
+def _pairwise_exists(table: PPFTable, pos, normal, anchor_idx, tr, rot,
+                     exists_bits=None):
     """[B, N] bool: does PPF(anchor_b -> i) exist in the model map (the
-    anchor is point 1 of the feature)."""
+    anchor is point 1 of the feature). With `exists_bits` (the matrix of
+    build_exists_bits) the check is one row read per anchor and an
+    elementwise unpack."""
     a = anchor_idx.long()
+    if exists_bits is not None:
+        rows = exists_bits[a]                             # [B, N / 32] int32
+        shifts = torch.arange(32, dtype=torch.int32, device=rows.device)
+        unpacked = (rows[:, :, None] >> shifts) & 1
+        return unpacked.reshape(rows.shape[0], -1)[:, :pos.shape[0]] > 0
     keys = ppf_keys_fast(
         pos[a][:, None, :], normal[a][:, None, :],
         pos[None, :, :], normal[None, :, :], tr, rot,
     )
     return ppf_exists(table, keys)
+
+
+def build_exists_bits(table: PPFTable, pos, normal, tr, rot,
+                      chunk: int = 256):
+    """Bit-packed [N, N / 32] matrix of PPF(i -> j) existence, 32 pairs a
+    word (bit j % 32 of word j // 32 of row i): the O(N^2) precomputation
+    that turns every sampling round's existence mask into a row lookup.
+    The words are int32 holding the JAX package's uint32 bit patterns
+    (torch shifts no uint32 on every backend). Built on the device of
+    `pos` in row blocks of `chunk`."""
+    n = pos.shape[0]
+    assert n % chunk == 0 and n % 32 == 0
+    weights = torch.ones((), dtype=torch.int64, device=pos.device) << torch.arange(
+        32, dtype=torch.int64, device=pos.device)
+    blocks = []
+    for i in range(0, n, chunk):
+        keys = ppf_keys_fast(
+            pos[i:i + chunk, None, :], normal[i:i + chunk, None, :],
+            pos[None, :, :], normal[None, :, :], tr, rot,
+        )
+        ex = ppf_exists(table, keys)                      # [chunk, n]
+        word = (ex.reshape(chunk, n // 32, 32).to(torch.int64) * weights).sum(-1)
+        # uint32 value -> the int32 with the same bits
+        blocks.append(torch.where(word >= 2 ** 31, word - 2 ** 32, word)
+                      .to(torch.int32))
+    return torch.cat(blocks)
 
 
 def _norm(v):
@@ -60,7 +107,7 @@ def _norm(v):
 
 
 def round2_keep_mask(table, pos, normal, idx1, idx2, tr, rot,
-                     internal_angle_threshold):
+                     internal_angle_threshold, exists_bits=None):
     """[B, N] keep-mask after drawing point 2: PPF(b2 -> i) exists, i is not
     b2, and the internal angle at b1 between (b2-b1) and (i-b1), folded to
     [0, 90], is >= the threshold."""
@@ -75,7 +122,7 @@ def round2_keep_mask(table, pos, normal, idx1, idx2, tr, rot,
               + v1[:, None, 2] * v2[..., 2])
     angle = torch.arccos(torch.clamp(cosang, -1.0, 1.0)) * _RAD2DEG
     angle = torch.minimum(angle, 180.0 - angle)
-    exists = _pairwise_exists(table, pos, normal, idx2, tr, rot)
+    exists = _pairwise_exists(table, pos, normal, idx2, tr, rot, exists_bits)
     return exists & (arange_n != idx2[:, None]) & ~(angle < internal_angle_threshold)
 
 
@@ -90,7 +137,7 @@ def _det3(m):
 
 
 def round3_keep_mask(table, pos, normal, idx1, idx2, idx3, tr, rot,
-                     plane_threshold, min_distance_base):
+                     plane_threshold, min_distance_base, exists_bits=None):
     """[B, N] keep-mask after drawing point 3: near-coplanar with the plane
     through b1-b3 (ax+by+cz=1 via Cramer's rule), at the minimum distance
     from each of b1-b3, PPF(b3 -> i) exists, i is not b3."""
@@ -115,7 +162,7 @@ def round3_keep_mask(table, pos, normal, idx1, idx2, idx3, tr, rot,
     d1 = _norm(pos[None, :, :] - p1[:, None, :])
     d2 = _norm(pos[None, :, :] - p2[:, None, :])
     d3 = _norm(pos[None, :, :] - p3[:, None, :])
-    exists = _pairwise_exists(table, pos, normal, idx3, tr, rot)
+    exists = _pairwise_exists(table, pos, normal, idx3, tr, rot, exists_bits)
     reject = (
         (planar > plane_threshold)
         | (d1 < min_distance_base)
@@ -140,6 +187,7 @@ def sample_class_bases(
     plane_threshold: float,
     min_distance_base: float,
     internal_angle_threshold: float,
+    exists_bits=None,
 ) -> SampledBases:
     """The class-conditional path (no edge map): four rounds of conditional
     masking, batched over B bases."""
@@ -149,17 +197,19 @@ def sample_class_bases(
     arange_n = torch.arange(n, dtype=torch.int32, device=pos.device)[None, :]
 
     idx1, ok1 = _categorical_rows(k1, probs)
-    exists1 = _pairwise_exists(table, pos, normal, idx1, tr_disc, rot_disc)
+    exists1 = _pairwise_exists(table, pos, normal, idx1, tr_disc, rot_disc,
+                               exists_bits)
     probs = torch.where(exists1 & (arange_n != idx1[:, None]), probs, 0.0)
 
     idx2, ok2 = _categorical_rows(k2, probs)
     keep2 = round2_keep_mask(table, pos, normal, idx1, idx2, tr_disc,
-                             rot_disc, internal_angle_threshold)
+                             rot_disc, internal_angle_threshold, exists_bits)
     probs = torch.where(keep2, probs, 0.0)
 
     idx3, ok3 = _categorical_rows(k3, probs)
     keep3 = round3_keep_mask(table, pos, normal, idx1, idx2, idx3, tr_disc,
-                             rot_disc, plane_threshold, min_distance_base)
+                             rot_disc, plane_threshold, min_distance_base,
+                             exists_bits)
     probs = torch.where(keep3, probs, 0.0)
 
     idx4, ok4 = _categorical_rows(k4, probs)

@@ -12,6 +12,11 @@ blocked layout.
 `write_synthetic_scene` renders the same shell at the same pose into an
 RGB-D frame and writes it, with a dense source cloud of the object, in the
 files the command-line tools read.
+
+Both have an edge-mapped variant (`edge=True`) that sends the estimator
+down the instance path: in memory the points are laid on an image grid
+with an edge wall between object and clutter (`synthetic_edge_arrays`); on
+disk the scene gains `probability_maps/edge.png` (`synthetic_edge_map`).
 """
 
 from __future__ import annotations
@@ -78,6 +83,38 @@ def synthetic_arrays(num_model=320, num_scene=1024, seed=0):
     return mpos, mnrm, spos, snrm, sprob, gt
 
 
+def synthetic_edge_arrays(num_model, num_scene, seed=0, height=64, width=64):
+    """An image layout for the points of `synthetic_arrays`, made from
+    `seed`: (pixel [num_scene, 2] int32 (row, col), edge_prob [num_scene]
+    float32, edge_free [height, width] bool). Object points take distinct
+    pixels above row height // 2, clutter points distinct pixels below it,
+    and that row is an edge wall across the whole image, so a segment grown
+    from an object point never reaches the clutter. The last four clutter
+    points sit on the wall itself (edge probability 1: never sampled)."""
+    rng = np.random.default_rng(seed)
+    wall = height // 2
+    ncl = num_scene - num_model
+    n_wall = min(4, ncl)
+    top, bottom = (wall - 1) * width, (height - wall - 1) * width
+    if num_model > top or ncl - n_wall > bottom:
+        raise ValueError(
+            f"{num_model} object and {ncl} clutter points do not fit a "
+            f"{height}x{width} image: pass a larger one")
+    pixel = np.zeros((num_scene, 2), np.int32)
+    flat = rng.choice(top, size=num_model, replace=False)
+    pixel[:num_model] = np.stack([flat // width, flat % width], axis=-1)
+    flat = rng.choice(bottom, size=ncl - n_wall, replace=False)
+    pixel[num_model:num_scene - n_wall] = np.stack(
+        [wall + 1 + flat // width, flat % width], axis=-1)
+    pixel[num_scene - n_wall:] = np.stack(
+        [np.full(n_wall, wall), rng.choice(width, size=n_wall, replace=False)], axis=-1)
+    edge_prob = np.zeros(num_scene, np.float32)
+    edge_prob[num_scene - n_wall:] = 1.0
+    edge_free = np.ones((height, width), bool)
+    edge_free[wall, :] = False
+    return pixel, edge_prob, edge_free
+
+
 # cell distributions that can break a scan of the dense gate that buckets
 # its columns by a hash of the cell id (ops/dense_gate.py)
 GATE_CELL_CASES = ("one_cell", "all_distinct", "above_low_6_bits",
@@ -103,9 +140,12 @@ def gate_cells(kind: str, rng: np.random.Generator, n: int) -> np.ndarray:
 
 
 def synthetic_setup(num_model=320, num_scene=1024, num_bases=16,
-                    max_pairs=512, max_congruent=32, seed=0, device="cuda"):
+                    max_pairs=512, max_congruent=32, seed=0, device="cuda",
+                    edge=False):
     """(ModelPack, ScenePack, MatchConfig) with the packs on `device` (the
-    card unless the caller asks for the CPU)."""
+    card unless the caller asks for the CPU). `edge=True` gives the scene
+    the image layout and edge wall of `synthetic_edge_arrays` and marks it
+    `has_edge`: the instance path."""
     device = require(device)
     mpos, mnrm, spos, snrm, sprob, _gt = synthetic_arrays(
         num_model, num_scene, seed
@@ -130,12 +170,19 @@ def synthetic_setup(num_model=320, num_scene=1024, num_bases=16,
     )
     sc = spos.mean(0)
     centered = spos - sc
+    if edge:
+        pixel, edge_prob, edge_free = (
+            torch.from_numpy(a) for a in synthetic_edge_arrays(num_model, num_scene, seed))
+    else:
+        pixel = torch.zeros(num_scene, 2, dtype=torch.int32)
+        edge_prob = torch.zeros(num_scene)
+        edge_free = torch.ones(16, 16, dtype=torch.bool)
     scene = ScenePack(
         pos=torch.from_numpy(centered), normal=torch.from_numpy(snrm),
         rgb=torch.zeros(num_scene, 3),
-        pixel=torch.zeros(num_scene, 2, dtype=torch.int32),
+        pixel=pixel,
         class_prob=torch.from_numpy(sprob),
-        edge_prob=torch.zeros(num_scene),
+        edge_prob=edge_prob,
         valid=torch.ones(num_scene, dtype=torch.bool),
         centroid=torch.from_numpy(sc),
         grid=build_neighbor_grid(
@@ -143,8 +190,8 @@ def synthetic_setup(num_model=320, num_scene=1024, num_bases=16,
         ),
         field=build_dense_field(centered, snrm, cfg.distance_threshold, prob=sprob),
         icp_grid=build_neighbor_grid(centered, cell_size=cfg.icp_max_corr_dist),
-        edge_free=torch.ones(16, 16, dtype=torch.bool),
-        has_edge=False,
+        edge_free=edge_free,
+        has_edge=edge,
     )
     return model.to(device), scene.to(device), cfg
 
@@ -185,8 +232,28 @@ def synthetic_rgbd(camera, width=640, height=480, depth_scale=1e-4,
     return rgb, depth, prob, gt.astype(np.float32)
 
 
+def synthetic_edge_map(prob, probability_scale=1e-4):
+    """[H, W] uint8 edge image for a rendered frame (255 = free space, 0 =
+    edge, as scene.load_scene reads it) from its probability image: the
+    object's silhouette boundary, two pixels thick so that an 8-connected
+    fill cannot slip through it, and one straight line across the
+    background at 85% of the height. Fills are thereby bounded by edges,
+    not only by the pixel radius, and the scene points that reproject onto
+    an edge pixel are never sampled."""
+    obj = prob > round(0.5 / probability_scale)
+    h, w = obj.shape
+    pad = np.pad(obj, 1, mode="edge")
+    windows = [pad[r:r + h, c:c + w] for r in range(3) for c in range(3)]
+    boundary = np.logical_or.reduce(windows) & ~np.logical_and.reduce(windows)
+    edge = np.full((h, w), 255, np.uint8)
+    edge[boundary] = 0
+    edge[int(0.85 * h), :] = 0
+    return edge
+
+
 def write_synthetic_scene(root, object_name="synthetic_shell", preset="ycb",
-                          scale=1.0, num_source_points=8000, seed=0):
+                          scale=1.0, num_source_points=8000, seed=0,
+                          edge=False):
     """Write a synthetic RGB-D scene and its object's source cloud (the
     shell of synthetic_arrays, `num_source_points` points) as the
     command-line tools read them:
@@ -194,7 +261,8 @@ def write_synthetic_scene(root, object_name="synthetic_shell", preset="ycb",
         <root>/models/<object>/textured_vertices.ply
         <root>/scene/{rgb.png, depth.png, probability_maps/<object>.png}
 
-    `scale` shrinks the image and the camera together (0.25 gives 160x120).
+    and, with `edge=True`, probability_maps/edge.png (`synthetic_edge_map`),
+    which makes the scene an instance-path one. `scale` shrinks the image and the camera together (0.25 gives 160x120).
     Returns (scene directory, MatchConfig of the preset at that image size,
     gt 4x4 model->camera pose)."""
     cfg = get_preset(preset).match
@@ -216,4 +284,7 @@ def write_synthetic_scene(root, object_name="synthetic_shell", preset="ycb",
     image.write_u16(os.path.join(scene_dir, "depth.png"), depth)
     image.write_u16(os.path.join(scene_dir, "probability_maps",
                                  f"{object_name}.png"), prob)
+    if edge:
+        image.write_u8(os.path.join(scene_dir, "probability_maps", "edge.png"),
+                       synthetic_edge_map(prob, cfg.probability_scale))
     return scene_dir, cfg, gt

@@ -1,13 +1,20 @@
 """Profile the PyTorch port's main path on one GPU.
 
-    python3 scripts/torch_profile_main.py [--bases 100] [--out chiprun_out/profile]
+    python3 scripts/torch_profile_main.py [--path class|instance|sweep]
+        [--bases 100] [--out DIR] [--trace]
 
-Runs the class-path estimator at the chip_smoke.py size (480 model points,
-16,384 scene points, 20,480 pairs per bin) once to warm up, then once under
-torch.profiler. Prints the per-phase wall times, the device-busy share of
-the profiled run (union of kernel intervals over its wall span), and the
-top operators by device time; writes the Chrome trace and the full table
-under --out.
+--path class (the default) runs the class-path estimator at the
+chip_smoke.py size (480 model points, 16,384 scene points, 20,480 pairs per
+bin); --path instance runs the instance path on the 640x480 synthetic scene
+with an edge map, ingested from files written under build/ (ycb preset,
+--bases bases); --path sweep runs one class-path sweep chunk of --bases
+bases (run_sweep) on the same scene without the edge map. Each runs once to
+warm up, then once under torch.profiler, on a fresh estimator (the instance
+path leaves its decayed prior on the estimator). Prints the per-phase wall
+times, the number of device kernels, the device-busy share of the profiled
+run (union of kernel intervals over their span), and the top operators by
+device time; writes the full table under --out (for --path class, or with
+--trace, also the Chrome trace).
 """
 
 from __future__ import annotations
@@ -40,8 +47,10 @@ def _busy_share(events, t_lo, t_hi):
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--path", choices=("class", "instance", "sweep"), default="class")
     ap.add_argument("--bases", type=int, default=100)
     ap.add_argument("--out", default="chiprun_out/profile")
+    ap.add_argument("--trace", action="store_true")
     args = ap.parse_args()
 
     import torch
@@ -56,19 +65,31 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     dev = torch.device("cuda", 0)
-    model, scene, cfg = synthetic_setup(num_model=480, num_scene=16384,
-                                        num_bases=args.bases, max_pairs=20480,
-                                        max_congruent=200, seed=3, device=dev)
-    est = StocsEstimator(model, scene, cfg)
-    est.run(verbose=False)
+    if args.path == "class":
+        model, scene, cfg = synthetic_setup(num_model=480, num_scene=16384,
+                                            num_bases=args.bases, max_pairs=20480,
+                                            max_congruent=200, seed=3, device=dev)
+    else:
+        model, scene, cfg = _scene_from_files(dev, args.path == "instance", args.bases)
+
+    def once():
+        est = StocsEstimator(model, scene, cfg)
+        if args.path == "sweep":
+            stats = est.run_sweep(args.bases, chunk=args.bases, verbose=False)[4]
+            return {k: stats[k] for k in ("seconds", "bases_per_sec", "hypotheses",
+                                          "hypotheses_per_sec")}
+        res = est.run(verbose=False)
+        return {k: round(v * 1e3, 3) for k, v in res.timings.items()}
+
+    once()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = est.run(verbose=False)
+        report = once()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    print(f"profiled run {wall * 1e3:.3f} ms; timings_ms "
-          + json.dumps({k: round(v * 1e3, 3) for k, v in res.timings.items()}))
+    print(f"{args.path} path, {args.bases} bases: profiled run {wall * 1e3:.3f} ms; "
+          + ("stats " if args.path == "sweep" else "timings_ms ") + json.dumps(report))
     kernels = [(e.time_range.start, e.time_range.end) for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if kernels:
@@ -83,9 +104,39 @@ def main():
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=30)
     print(table)
     os.makedirs(args.out, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(args.out, "trace.json"))
-    with open(os.path.join(args.out, "ops.txt"), "w") as f:
+    if args.trace or args.path == "class":
+        prof.export_chrome_trace(os.path.join(args.out, f"trace_{args.path}.json"))
+    with open(os.path.join(args.out, f"ops_{args.path}.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by="cuda_time_total", row_limit=200))
+
+
+def _scene_from_files(dev, edge, bases):
+    """The 640x480 synthetic scene (with or without its edge map) and its
+    preprocessed model, written under build/ and loaded at the ycb preset."""
+    import dataclasses
+
+    from model_matching_tpu_torch import cli
+    from model_matching_tpu_torch.model import load_model_pack
+    from model_matching_tpu_torch.scene import load_scene
+    from model_matching_tpu_torch.synthetic import write_synthetic_scene
+
+    root = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "build", "profile_files")
+    obj = "synthetic_shell"
+    scene_dir, cfg, _gt = write_synthetic_scene(root, obj, edge=True)
+    if cli.main(["model-preprocess", obj, "--repo-path", root]) != 0:
+        raise RuntimeError("model-preprocess failed")
+    mdir = os.path.join(root, "models", obj)
+    model = load_model_pack(os.path.join(mdir, "model_search.ply"),
+                            os.path.join(mdir, "ppf_table.npz"),
+                            cfg.max_model_points, device=dev)
+    maps = os.path.join(scene_dir, "probability_maps")
+    scene = load_scene(os.path.join(scene_dir, "rgb.png"),
+                       os.path.join(scene_dir, "depth.png"),
+                       os.path.join(maps, f"{obj}.png"),
+                       os.path.join(maps, "edge.png") if edge else None,
+                       cfg, device=dev)
+    return model, scene, dataclasses.replace(cfg, number_of_bases=bases)
 
 
 if __name__ == "__main__":

@@ -165,3 +165,84 @@ def test_ingest_and_preprocess_card_equal_cpu(tmp_path):
         assert sorted(a) == sorted(b)
         for k in a:
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+@pytest.mark.cuda
+def test_flood_and_instance_sampler_card_equal_cpu():
+    """Flood fills (both modes, a batch of seeds) and the sequential
+    instance sampler (both ways of taking the cached-mask branch) give the
+    same masks, bases and decayed prior on the card as on the CPU."""
+    from model_matching_tpu_torch import flood, instance, rng
+
+    dev = _card()
+    g = np.random.default_rng(0)
+    edge_free = g.random((120, 160)) > 0.08
+    edge_free[60, :] = False
+    seeds = torch.from_numpy(np.argwhere(edge_free)[::900][:8].astype(np.int32))
+    radii = torch.linspace(5.0, 90.0, seeds.shape[0])
+    ef = torch.from_numpy(edge_free)
+    for kw in (dict(fixed_sweeps=8), dict(max_iters=64)):
+        cm, cc = flood.flood_fill(seeds, ef, radii, return_converged=True, **kw)
+        gm, gc = flood.flood_fill(seeds.to(dev), ef.to(dev), radii.to(dev),
+                                  return_converged=True, **kw)
+        assert torch.equal(gm.cpu(), cm) and torch.equal(gc.cpu(), cc)
+        assert int(cm.sum()) > 8
+
+    model, scene, cfg = synthetic_setup(device="cpu", edge=True)
+    m_g, s_g = model.to(dev), scene.to(dev)
+
+    def sample(m, s, branch):
+        return instance.sample_instance_bases_stepwise(
+            rng.PRNGKey(3), m.table, s.pos, s.normal, s.class_prob, s.edge_prob,
+            s.pixel, s.valid, s.edge_free, num_bases=12, dispersion=0.9,
+            tr_disc=cfg.ppf_tr_discretization, rot_disc=cfg.ppf_rot_discretization,
+            plane_threshold=cfg.plane_threshold,
+            min_distance_base=cfg.min_distance_base,
+            internal_angle_threshold=cfg.internal_angle_threshold,
+            flood_sweeps=8, block=5, cache_branch=branch)
+
+    cpu = sample(model, scene, "read")
+    assert bool(cpu.valid.any())
+    for branch in ("read", "select"):
+        for a, b in zip(cpu, sample(m_g, s_g, branch)):
+            assert torch.equal(a, b.cpu()), branch
+
+
+@pytest.mark.cuda
+def test_instance_run_and_sweep_card_equal_cpu(tmp_path):
+    """The instance run and a checkpointed class sweep on the card against
+    the CPU: the same bases, best index and decayed prior, LCPs within
+    1e-5, poses within 1e-4, the same number of clusters; both kernels
+    launched."""
+    dev = _card()
+    model, scene, cfg = synthetic_setup(device="cpu", edge=True)
+    ce = StocsEstimator(model, scene, cfg)
+    cpu = ce.run(seed=2, verbose=False)
+    ge = StocsEstimator(model.to(dev), scene.to(dev), cfg)
+    gates, gathers = tdg.dense_gate.launches, trg.row_gather.launches
+    gpu = ge.run(seed=2, verbose=False)
+    assert trg.row_gather.launches > gathers
+    assert gpu.best_index == cpu.best_index >= 0
+    assert abs(gpu.best_lcp - cpu.best_lcp) <= 1e-5
+    assert torch.equal(ge.class_prob.cpu(), ce.class_prob)
+    assert torch.equal(ge.seg_masks.cpu(), ce.seg_masks)
+    assert torch.equal(gpu.poses.lcp.cpu(), cpu.poses.lcp)
+    assert abs(gpu.best_world_transform - cpu.best_world_transform).max() <= 1e-4
+    assert len(ge.cluster_poses(gpu)[1]) == len(ce.cluster_poses(cpu)[1]) >= 1
+
+    model, scene, cfg = synthetic_setup(device="cpu")
+    kw = dict(chunk=16, keep_per_chunk=16, verbose=False)
+    cpu = StocsEstimator(model, scene, cfg).run_sweep(48, **kw)
+    ckpt = str(tmp_path / "sweep.npz")
+    m_g, s_g = model.to(dev), scene.to(dev)
+    part = StocsEstimator(m_g, s_g, cfg).run_sweep(
+        48, checkpoint_path=ckpt, stop_after_chunks=2, **kw)
+    assert part[4]["next_chunk"] == 2 and os.path.exists(ckpt)
+    gpu = StocsEstimator(m_g, s_g, cfg).run_sweep(48, checkpoint_path=ckpt, **kw)
+    assert gpu[4]["completed"] and not os.path.exists(ckpt)
+    whole = StocsEstimator(m_g, s_g, cfg).run_sweep(48, **kw)
+    assert gpu[0] == whole[0] and np.array_equal(gpu[1], whole[1])
+    assert np.array_equal(gpu[2], whole[2]) and np.array_equal(gpu[3], whole[3])
+    assert abs(gpu[0] - cpu[0]) <= 1e-5 and gpu[4]["hypotheses"] == cpu[4]["hypotheses"]
+    assert abs(gpu[1] - cpu[1]).max() <= 1e-4 and len(gpu[3]) == len(cpu[3])
+    assert tdg.dense_gate.launches >= gates

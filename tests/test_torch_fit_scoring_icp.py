@@ -146,3 +146,60 @@ def test_icp_refine_equal(setup):
             ts.normal, max_corr_dist=cfg.icp_max_corr_dist,
             iterations=cfg.icp_iterations)
         np.testing.assert_allclose(np.asarray(jr), trf.numpy(), rtol=0, atol=1e-4)
+
+
+def _three_planes(n, seed):
+    """A target of three orthogonal planes (all 6 degrees of freedom
+    constrained) and a source moved off it, 15% of it displaced further
+    (an occluded region a plain point-to-plane fit would chase)."""
+    r = np.random.default_rng(seed)
+    k = n // 3
+    u = lambda: r.uniform(-0.2, 0.2, k)
+    target = np.concatenate([
+        np.stack([u(), u(), np.zeros(k)], 1), np.stack([u(), np.zeros(k), u()], 1),
+        np.stack([np.zeros(k), u(), u()], 1)]).astype(np.float32)
+    nrm = np.concatenate([np.tile([0, 0, 1.0], (k, 1)), np.tile([0, 1.0, 0], (k, 1)),
+                          np.tile([1.0, 0, 0], (k, 1))]).astype(np.float32)
+    gt = np.eye(4, dtype=np.float32)
+    gt[:3, 3] = [0.008, -0.006, 0.01]
+    source = target @ gt[:3, :3].T + gt[:3, 3]
+    source[:int(0.15 * n)] += np.array([0.03, 0.03, 0.0], np.float32)
+    return target, nrm, source, gt
+
+
+@pytest.mark.parametrize("trim,valid_fraction", [(0.7, 1.0), (0.8, 0.6), (0.33, 1.0)])
+def test_trimmed_icp_equal(trim, valid_fraction):
+    """trimmed_icp's offset within 1e-5 of the JAX package's on the same
+    grid (the kept set is an integer decision: n_keep is a float32 product
+    truncated, the threshold the n_keep-th smallest residual), with some
+    source points masked out, and it undoes the perturbation."""
+    from model_matching_tpu.ops.gridhash import build_neighbor_grid as jgrid
+
+    n = 900
+    target, nrm, source, gt = _three_planes(n, seed=21)
+    valid = np.arange(n) < int(valid_fraction * n)
+    grid = jgrid(target, cell_size=0.035)
+    want = np.asarray(jicp.trimmed_icp(
+        jnp.asarray(source), jnp.asarray(valid), jnp.asarray(target),
+        jnp.asarray(nrm), grid, trim_fraction=trim))
+    got = ticp.trimmed_icp(
+        torch.from_numpy(source), torch.from_numpy(valid), torch.from_numpy(target),
+        torch.from_numpy(nrm), convert.neighbor_grid(grid), trim_fraction=trim).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    if trim == 0.7:
+        residual = got @ gt
+        assert np.linalg.norm(residual[:3, 3]) < 4e-3
+        np.testing.assert_allclose(residual[:3, :3], np.eye(3), atol=6e-3)
+
+
+def test_trimmed_icp_identity_without_correspondences():
+    from model_matching_tpu_torch.ops.gridhash import build_neighbor_grid
+
+    r = np.random.default_rng(3)
+    target = r.uniform(-0.1, 0.1, (100, 3)).astype(np.float32)
+    nrm = np.tile([0, 0, 1.0], (100, 1)).astype(np.float32)
+    source = target + np.array([10.0, 0, 0], np.float32)
+    grid = build_neighbor_grid(target, cell_size=0.035, cell_cap=64)
+    off = ticp.trimmed_icp(torch.from_numpy(source), torch.ones(100, dtype=torch.bool),
+                           torch.from_numpy(target), torch.from_numpy(nrm), grid)
+    assert torch.equal(off, torch.eye(4))

@@ -267,21 +267,37 @@ def test_scene_structures_equal_on_equal_inputs(scenes):
 
 
 def test_edge_map_marks_the_instance_path(scenes, tmp_path):
-    """A scene with an edge map loads as has_edge, and the estimator
-    refuses it (the instance path is not ported) instead of running the
-    class path."""
+    """A scene with an edge map loads as has_edge, and the estimator takes
+    the instance path on it (flood-fill segments, the prior decayed),
+    not the class path. An all-free map bounds the fills by the pixel
+    radius only; edge pixels carry edge probability 1."""
     from model_matching_tpu_torch.estimator import StocsEstimator
     from model_matching_tpu_torch.io import image
     from model_matching_tpu_torch.synthetic import synthetic_setup
 
-    _js, _ts, cfg, paths = scenes
+    _js, ts, cfg, paths = scenes
     edge = str(tmp_path / "edge.png")
     image.write_u8(edge, np.full((120, 160), 255, np.uint8))
     sc = tscene.load_scene(*paths, edge, cfg, device="cpu")
     assert sc.has_edge and bool(sc.edge_free.all())
+    assert not ts.has_edge and bool((sc.edge_prob == 0).all())
     model, _scene, _cfg = synthetic_setup(device="cpu")
-    with pytest.raises(NotImplementedError, match="instance path"):
-        StocsEstimator(model, sc, cfg).run(verbose=False)
+    small = dataclasses.replace(cfg, number_of_bases=3, max_pairs_per_bin=256,
+                                maximum_congruent_sets=16)
+    est = StocsEstimator(model, sc, small)
+    res = est.run(verbose=False)
+    assert est.seg_masks.shape == (4, 120, 160) and bool(est.seg_masks[1].any())
+    assert est.class_prob is not sc.class_prob
+    assert bool((est.class_prob < sc.class_prob).any())
+    assert res.stats["unconverged_fills"] == 0 and "sample_bases" in res.timings
+    # a map with an edge line: the points on it are pruned from sampling
+    lined = np.full((120, 160), 255, np.uint8)
+    lined[60, :] = 0
+    image.write_u8(edge, lined)
+    sc = tscene.load_scene(*paths, edge, cfg, device="cpu")
+    on_line = sc.valid & (sc.pixel[:, 0] == 60)
+    assert int(on_line.sum()) > 0 and bool((sc.edge_prob[on_line] == 1.0).all())
+    assert not bool(sc.edge_free[60].any()) and bool(sc.edge_free[59].all())
 
 
 def test_cuda_default_needs_a_card(scenes):

@@ -1,0 +1,182 @@
+"""Instance-path sampling of the port against the JAX package, on the
+small scenes of tests/test_instance.py (N = 64 points on a 24x32 image, an
+edge wall, made from a numpy seed), with equal keys.
+
+Sequential sampler: base indices, `valid`, `fill_converged` and `seg_masks`
+equal, `class_prob` bit-equal (one float32 multiply per decayed base), the
+invariants within 1e-6. Blocked sampler: the same integers, `class_prob`
+within 1e-6 relative (`dispersion ** counts`: XLA's and torch's float32
+pow may differ in the last bit)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from model_matching_tpu import instance as jinst
+from model_matching_tpu import sampling as jsamp
+from model_matching_tpu_torch import convert, rng
+from model_matching_tpu_torch import instance as tinst
+from model_matching_tpu_torch import sampling as tsamp
+from tests.test_instance import build_easy_scene, build_scene
+
+KW = dict(tr_disc=5, rot_disc=5, plane_threshold=0.15, min_distance_base=0.01,
+          internal_angle_threshold=30.0, flood_max_iters=64)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _envs(make_scene, seed):
+    env = make_scene(np.random.default_rng(seed))
+    tenv = (convert.ppf_table(env[0]),) + tuple(
+        torch.from_numpy(np.array(a)) for a in env[1:])
+    return env, tenv
+
+
+@pytest.fixture(scope="module")
+def wall():
+    return _envs(build_scene, 12345)
+
+
+@pytest.fixture(scope="module")
+def easy():
+    return _envs(build_easy_scene, 12345)
+
+
+def _same(j, t, prob_rtol=None):
+    np.testing.assert_array_equal(np.asarray(j.valid), t.valid.numpy())
+    np.testing.assert_array_equal(np.asarray(j.indices), t.indices.numpy())
+    np.testing.assert_array_equal(np.asarray(j.fill_converged), t.fill_converged.numpy())
+    np.testing.assert_array_equal(np.asarray(j.seg_masks), t.seg_masks.numpy())
+    if prob_rtol is None:
+        np.testing.assert_array_equal(np.asarray(j.class_prob), t.class_prob.numpy())
+    else:
+        np.testing.assert_allclose(t.class_prob.numpy(), np.asarray(j.class_prob),
+                                   rtol=prob_rtol, atol=0)
+    ok = np.asarray(j.valid)
+    for a, b in ((j.invariant1, t.invariant1), (j.invariant2, t.invariant2)):
+        np.testing.assert_allclose(b.numpy()[ok], np.asarray(a)[ok], rtol=0, atol=1e-6)
+
+
+def _jax_seq(env, key, num_bases, dispersion=0.9, sweeps=None, bits=None):
+    table, pos, nrm, prob, edge_prob, pixel, valid, edge_free = env
+    return jinst.sample_instance_bases_stepwise(
+        key, table, pos, nrm, jnp.array(prob), edge_prob, pixel, valid, edge_free,
+        num_bases=num_bases, dispersion=dispersion, block=4, exists_bits=bits,
+        flood_sweeps=sweeps, **KW)
+
+
+def _torch_seq(tenv, key, num_bases, dispersion=0.9, sweeps=None, bits=None,
+               fn=tinst.sample_instance_bases_stepwise, **kw):
+    table, pos, nrm, prob, edge_prob, pixel, valid, edge_free = tenv
+    return fn(key, table, pos, nrm, prob, edge_prob, pixel, valid, edge_free,
+              num_bases=num_bases, dispersion=dispersion, exists_bits=bits,
+              flood_sweeps=sweeps, **KW, **kw)
+
+
+@pytest.mark.parametrize("scene,seed,sweeps", [
+    ("wall", 11, None), ("wall", 5, 8), ("easy", 9, 8), ("easy", 3, 1)])
+def test_sequential_sampler_equals_jax(wall, easy, scene, seed, sweeps):
+    env, tenv = wall if scene == "wall" else easy
+    j = _jax_seq(env, jax.random.PRNGKey(seed), 10, sweeps=sweeps)
+    t = _torch_seq(tenv, rng.PRNGKey(seed), 10, sweeps=sweeps, block=4)
+    _same(j, t)
+    assert t.seg_masks.shape == (11, 24, 32)
+    if scene == "easy":
+        assert t.valid.any()
+        # some point decayed, none grew
+        assert (t.class_prob < tenv[3]).any() and not (t.class_prob > tenv[3]).any()
+
+
+def test_one_loop_under_three_names(easy):
+    """The whole-scan name, the stepper at any block size and both ways of
+    taking the cached-mask branch give the same outputs; the input prior is
+    not written to."""
+    _env, tenv = easy
+    prior = tenv[3].clone()
+    key = rng.PRNGKey(9)
+    ref = _torch_seq(tenv, key, 10, sweeps=8, block=3)
+    assert torch.equal(tenv[3], prior)
+    for other in (
+        _torch_seq(tenv, key, 10, sweeps=8, block=64),
+        _torch_seq(tenv, key, 10, sweeps=8, fn=tinst.sample_instance_bases),
+        _torch_seq(tenv, key, 10, sweeps=8, block=4, cache_branch="select"),
+    ):
+        for a, b in zip(ref, other):
+            assert torch.equal(a, b)
+    # the cache was hit: a later base carries an earlier base's mask
+    m = ref.seg_masks
+    assert any(torch.equal(m[i], m[j]) and bool(m[i].any())
+               for i in range(1, 11) for j in range(1, i))
+    with pytest.raises(ValueError, match="cache_branch"):
+        _torch_seq(tenv, key, 2, cache_branch="maybe")
+
+
+def test_exists_bits_words_and_draws(wall):
+    """The bit matrix holds the JAX package's uint32 words (as int32 bit
+    patterns); the masks read from it equal the hashed ones; the sampler
+    draws the same bases with and without it."""
+    env, tenv = wall
+    jbits = jsamp.build_exists_bits(env[0], env[1], env[2], 5, 5, chunk=32)
+    tbits = tsamp.build_exists_bits(tenv[0], tenv[1], tenv[2], 5, 5, chunk=32)
+    assert tbits.dtype == torch.int32 and tbits.shape == (64, 2)
+    np.testing.assert_array_equal(tbits.numpy().view(np.uint32), np.asarray(jbits))
+    assert torch.equal(convert.exists_bits(jbits), tbits)
+    assert (tbits < 0).any()          # bit 31 is in use
+    anchors = torch.arange(64, dtype=torch.int32)
+    hashed = tsamp._pairwise_exists(tenv[0], tenv[1], tenv[2], anchors, 5, 5)
+    packed = tsamp._pairwise_exists(tenv[0], tenv[1], tenv[2], anchors, 5, 5, tbits)
+    assert torch.equal(hashed, packed) and bool(hashed.any())
+    a = _torch_seq(tenv, rng.PRNGKey(11), 8, block=4)
+    b = _torch_seq(tenv, rng.PRNGKey(11), 8, block=4, bits=tbits)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    _same(_jax_seq(env, jax.random.PRNGKey(11), 8, bits=jbits), b)
+
+
+def _blocked(env, tenv, key_seed, dispersion, num_bases, block_size, sweeps=None):
+    table, pos, nrm, prob, edge_prob, pixel, valid, edge_free = env
+    j = jinst.sample_instance_bases_blocked(
+        jax.random.PRNGKey(key_seed), table, pos, nrm, jnp.array(prob), edge_prob,
+        pixel, valid, edge_free, num_bases=num_bases, dispersion=dispersion,
+        block_size=block_size, flood_sweeps=sweeps, **KW)
+    table, pos, nrm, prob, edge_prob, pixel, valid, edge_free = tenv
+    t = tinst.sample_instance_bases_blocked(
+        rng.PRNGKey(key_seed), table, pos, nrm, prob, edge_prob, pixel, valid,
+        edge_free, num_bases=num_bases, dispersion=dispersion,
+        block_size=block_size, flood_sweeps=sweeps, **KW)
+    return j, t
+
+
+@pytest.mark.parametrize("scene,seed,bases,block,sweeps", [
+    ("easy", 9, 8, 4, None), ("easy", 7, 10, 4, 8), ("wall", 7, 12, 5, None)])
+def test_blocked_sampler_equals_jax(wall, easy, scene, seed, bases, block, sweeps):
+    """Aligned and padded block sizes. class_prob within 1e-6 relative; the
+    draws (which read log(prior) under a Gumbel argmax) equal at these
+    seeds."""
+    env, tenv = wall if scene == "wall" else easy
+    j, t = _blocked(env, tenv, seed, 0.9, bases, block, sweeps)
+    _same(j, t, prob_rtol=1e-6)
+    if scene == "easy":
+        assert t.valid.any()
+
+
+def test_blocked_equals_sequential_without_decay(easy):
+    """dispersion == 1: the blocked sampler draws the sequential sampler's
+    bases (per-base keys are derived identically)."""
+    _env, tenv = easy
+    table, pos, nrm, prob, edge_prob, pixel, valid, edge_free = tenv
+    seq = _torch_seq(tenv, rng.PRNGKey(3), 10, dispersion=1.0, block=4)
+    blk = tinst.sample_instance_bases_blocked(
+        rng.PRNGKey(3), table, pos, nrm, prob, edge_prob, pixel, valid, edge_free,
+        num_bases=10, dispersion=1.0, block_size=4, **KW)
+    assert torch.equal(seq.indices, blk.indices)
+    assert torch.equal(seq.valid, blk.valid)
+    assert torch.equal(seq.class_prob, blk.class_prob)

@@ -59,3 +59,40 @@ def test_categorical_draws_equal(seed):
         np.asarray(jax.random.categorical(jk, logits, axis=-1)),
         rng.categorical(tk, torch.from_numpy(logits)).numpy(),
     )
+
+
+@pytest.mark.parametrize("seed,num", [(0, 4), (11, 4), (2**31 - 1, 3)])
+def test_batched_split_equals_vmap(seed, num):
+    """split over a [B, 2] batch of keys == jax.vmap(split): the per-base
+    round keys of the instance sampler (split(key, B), each split in 4)."""
+    jkeys = jax.random.split(jax.random.PRNGKey(seed), 9)
+    tkeys = rng.split(rng.PRNGKey(seed), 9)
+    want = jax.vmap(lambda k: jax.random.split(k, num))(jkeys)
+    got = rng.split(tkeys, num)
+    assert got.shape == (9, num, 2) and got.dtype == torch.int64
+    np.testing.assert_array_equal(np.asarray(want).astype(np.int64), got.numpy())
+    # each row is that key's own split
+    np.testing.assert_array_equal(got[5].numpy(), rng.split(tkeys[5], num).numpy())
+
+
+@pytest.mark.parametrize("seed", [1, 8])
+def test_gumbel_rows_and_per_key_draws(seed):
+    """One [1, n] draw per key, as jax.vmap of a categorical over a batch
+    of keys makes them: the noise bit-equal to the port's single-key gumbel
+    (within 1e-6 of jax's), the drawn indices equal to jax's."""
+    jkeys = jax.random.split(jax.random.PRNGKey(seed), 6)
+    tkeys = rng.split(rng.PRNGKey(seed), 6)
+    noise = rng.gumbel_rows(tkeys, 500)
+    assert noise.shape == (6, 500) and noise.dtype == torch.float32
+    for i in (0, 5):
+        assert torch.equal(noise[i], rng.gumbel(tkeys[i], (1, 500))[0])
+    want = jax.vmap(lambda k: jax.random.gumbel(k, (1, 500)))(jkeys)[:, 0]
+    np.testing.assert_allclose(noise.numpy(), np.asarray(want), rtol=0, atol=1e-6)
+    logits = np.random.default_rng(seed).normal(size=(6, 500)).astype(np.float32)
+    logits[2, :450] = -np.inf
+    jdraw = jax.vmap(lambda k, l: jax.random.categorical(k, l[None], axis=-1))(
+        jkeys, jnp.asarray(logits))[:, 0]
+    tdraw = torch.argmax(noise + torch.from_numpy(logits), dim=-1)
+    np.testing.assert_array_equal(np.asarray(jdraw), tdraw.numpy())
+    with pytest.raises(ValueError, match=r"\[K, 2\]"):
+        rng.gumbel_rows(tkeys[0], 4)

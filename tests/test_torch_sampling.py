@@ -86,3 +86,56 @@ def test_reorder_base_equal():
     np.testing.assert_array_equal(np.asarray(jp), tp.numpy())
     for a, b in ((j1, t1), (j2, t2), (jd, td)):
         np.testing.assert_allclose(np.asarray(a), b.numpy(), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_sample_class_bases_through_exists_bits(packs, seed):
+    """With the bit-packed existence matrix (768 lanes = 3 row blocks of
+    256) the sampler draws what it draws by hashing, and what the JAX
+    package draws through its matrix; the words are equal."""
+    model, scene, cfg, tm, ts = packs
+    tr, rot = cfg.ppf_tr_discretization, cfg.ppf_rot_discretization
+    jbits = jax.jit(lambda p, n: jsamp.build_exists_bits(model.table, p, n, tr, rot))(
+        scene.pos, scene.normal)
+    tbits = tsamp.build_exists_bits(tm.table, ts.pos, ts.normal, tr, rot)
+    assert tbits.shape == (768, 24) and tbits.dtype == torch.int32
+    np.testing.assert_array_equal(tbits.numpy().view(np.uint32), np.asarray(jbits))
+    assert torch.equal(convert.exists_bits(jbits), tbits)
+    b = 48
+    args = (tm.table, ts.pos, ts.normal, ts.class_prob, ts.valid)
+    hashed = tsamp.sample_class_bases(rng.PRNGKey(seed), *args, num_bases=b, **_kw(cfg))
+    packed = tsamp.sample_class_bases(rng.PRNGKey(seed), *args, num_bases=b,
+                                      exists_bits=tbits, **_kw(cfg))
+    for x, y in zip(hashed, packed):
+        assert torch.equal(x, y)
+    jfn = jax.jit(functools.partial(jsamp.sample_class_bases, num_bases=b, **_kw(cfg)))
+    jb = jfn(jax.random.PRNGKey(seed), model.table, scene.pos, scene.normal,
+             scene.class_prob, scene.valid, exists_bits=jbits)
+    np.testing.assert_array_equal(np.asarray(jb.indices), packed.indices.numpy())
+    np.testing.assert_array_equal(np.asarray(jb.valid), packed.valid.numpy())
+
+
+def test_estimator_builds_the_bits_from_512_bases(packs, monkeypatch):
+    """StocsEstimator.run hands the sampler the bit matrix from 512 bases
+    up and nothing below; the matrix is built once, at first use."""
+    import dataclasses
+
+    from model_matching_tpu_torch import estimator as port
+
+    _model, _scene, cfg, tm, ts = packs
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def spy(*args, exists_bits=None, **kw):
+        seen.append(exists_bits)
+        raise Stop
+
+    monkeypatch.setattr(port.sampling, "sample_class_bases", spy)
+    for bases in (511, 512):
+        est = port.StocsEstimator(tm, ts, dataclasses.replace(cfg, number_of_bases=bases))
+        with pytest.raises(Stop):
+            est.run(verbose=False)
+    assert seen[0] is None and seen[1] is est._exists_bits is est.exists_bits()
+    assert seen[1].shape == (768, 24)
