@@ -93,15 +93,51 @@ Phases, in order; any failure exits nonzero and prints no result:
              plain versions as in phase 8; the largest dense-gate launch
              and each distinct gather are timed. Prints bases/s and
              hypotheses/s.
+10. multi  — three objects at full width: the 640x480 three-object scene of
+             synthetic.write_synthetic_multi_scene (three distinct shells,
+             each with its own probability map) written to
+             build/chip_smoke_multi/, cli.main(["model-preprocess", ...]) for
+             each object, then cli.main(["stocs-multi", ...]) at the ycb
+             preset's defaults on the class scene and on the same scene with
+             edge.png (the instance path), launch counts reset just before
+             each; the class run's dense-gate launches and row gathers are
+             recorded. Requires: both kernels launched on both paths; every
+             object's pose file orthonormal, equal to a direct
+             multi.match_all_objects call on the ingested packs, and its
+             posed model within 1.5 x distance_threshold (median NN) of its
+             own object's scene points; the recorded launches equal to the
+             plain versions (first two and last base of a launch); object 0
+             alone equal to its row, and each row unchanged when the other
+             objects' priors are zeroed, bit for bit; the card against the
+             CPU at 160x120 on the small configuration of
+             tests/test_torch_cli.py (1 cm voxel, 4,096 points, 2,048 pairs
+             per bin, 64 sets, 16 bases): equal hypothesis counts, LCP within
+             1e-5, poses within 1e-4. Prints the command's wall, the warm
+             call's and each object's alone.
+11. commands — on phase 10's files: cli.main(["stocs-single", ...]) for each
+             object (timed: the three one-object calls beside stocs-multi),
+             ["stocs-batch", ...] whose pose files must equal them byte for
+             byte; `serve` in a fresh process (python -m
+             model_matching_tpu_torch.cli serve) answering five requests
+             (three objects, the edge scene, a bad line) with OK rows equal
+             to the stocs-single files and no kernel load or build after
+             the first request (its serve_request events; first and warm
+             latency printed); ["eval", ...] of the stocs-multi and the
+             stocs-single poses against the written ground truth (pose
+             files and the BOP scene_gt.json) passing ADD-S for every
+             object; ["stocs-single", ..., "--profile", DIR] writing a
+             Chrome trace that names both kernels.
 
 The line before the last is a JSON object describing the kernels (their
-`launches` are those of phase 7's run; `launches_instance` and
-`launches_sweep` those of phases 8 and 9); the last line is
-{"ok": true, "device": {...}}.
+`launches` are those of phase 7's run; `launches_instance`,
+`launches_sweep`, `launches_multi` and `launches_multi_edge` those of
+phases 8, 9 and 10); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import logging
 import os
@@ -115,6 +151,7 @@ import time
 _HBM_BYTES_PER_S = 3.35e12
 _FP32_OPS_PER_S = 67e12
 _ROOT = os.path.dirname(os.path.abspath(__file__))
+_START = time.perf_counter()
 
 
 # the in-memory main path: the size bench.py of the JAX package calls
@@ -124,7 +161,7 @@ MAIN_SETUP = dict(num_model=480, num_scene=16384, num_bases=100,
 
 
 def _phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - _START:.1f} s)", flush=True)
 
 
 def _gpu_name_and_limit() -> str:
@@ -445,6 +482,14 @@ def main() -> int:
     _phase("sweep")
     sweep = _sweep_phase(torch, dev, dense_gate, dense_gate_reference, row_gather)
 
+    # ---- 10. three objects in one call, class and instance path
+    _phase("multi")
+    multi = _multi_phase(torch, dev, dense_gate, dense_gate_reference, row_gather)
+
+    # ---- 11. stocs-batch, serve, eval and --profile
+    _phase("commands")
+    _commands_phase(torch, dev, multi)
+
     field = max((r for r in gather_shapes if r["what"] == "field rows"),
                 key=lambda r: r["bytes"])
     print(json.dumps({"kernels": [{
@@ -454,7 +499,8 @@ def main() -> int:
         "replaces": "model_matching_tpu/ops/pallas_congruent.py:180",
         "launches": files["dense_gate_launches"],
         "max_abs_err": max(max_err, recorded["max_abs_err"],
-                           inst["gate_max_abs_err"], sweep["gate_max_abs_err"]),
+                           inst["gate_max_abs_err"], sweep["gate_max_abs_err"],
+                           multi["gate_max_abs_err"]),
         "ms": recorded["ms"],
         "plain_ms": recorded["plain_ms"],
         "bound_ms": recorded["bound_ms"],
@@ -464,9 +510,12 @@ def main() -> int:
         "launches_synthetic_main": launches,
         "launches_instance": inst["dense_gate_launches"],
         "launches_sweep": sweep["dense_gate_launches"],
+        "launches_multi": multi["class"]["dense_gate_launches"],
+        "launches_multi_edge": multi["edge"]["dense_gate_launches"],
         "recorded_main_path_launch": recorded,
         "recorded_instance_launches": inst["gates"],
         "recorded_sweep_chunk_launches": sweep["gates"],
+        "recorded_multi_launches": multi["gates"],
         "per_shape": per_shape,
     }, {
         "name": "row_gather",
@@ -475,7 +524,7 @@ def main() -> int:
         "replaces": "scripts/probe_vmem_gather.py:38",
         "launches": files["row_gather_launches"],
         "max_abs_err": max(gather_err, inst["gather_max_abs_err"],
-                           sweep["gather_max_abs_err"]),
+                           sweep["gather_max_abs_err"], multi["gather_max_abs_err"]),
         "ms": field["ms"],
         "plain_ms": field["plain_ms"],
         "bound_ms": field["bound_ms"],
@@ -485,9 +534,12 @@ def main() -> int:
         "launches_synthetic_main": gather_launches,
         "launches_instance": inst["row_gather_launches"],
         "launches_sweep": sweep["row_gather_launches"],
+        "launches_multi": multi["class"]["row_gather_launches"],
+        "launches_multi_edge": multi["edge"]["row_gather_launches"],
         "per_shape": gather_shapes,
         "instance_gathers": inst["gathers"],
         "sweep_chunk_gathers": sweep["gathers"],
+        "multi_gathers": multi["gathers"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -912,9 +964,10 @@ def _recorded_gather_cases(calls):
             for what, tab, idx in calls]
 
 
-def _pose_file_on_scene(torch, dev, np, path, model_ply, scene, cfg):
+def _pose_file_on_scene(torch, dev, np, path, model_ply, scene, cfg, own=None):
     """The 3x4 pose file is finite and orthonormal and its posed model lies
-    on the ingested scene; returns the median NN distance."""
+    on the ingested scene (or on its points where the mask `own` holds);
+    returns the median NN distance."""
     from model_matching_tpu_torch.io import ply
 
     pose = np.loadtxt(path)
@@ -922,16 +975,18 @@ def _pose_file_on_scene(torch, dev, np, path, model_ply, scene, cfg):
         raise AssertionError(f"{path} is not 12 finite numbers")
     w = pose.reshape(3, 4)
     if not np.allclose(w[:, :3] @ w[:, :3].T, np.eye(3), atol=1e-4):
-        raise AssertionError("the pose's rotation is not orthonormal")
+        raise AssertionError(f"{path}: the pose's rotation is not orthonormal")
     mpos = ply.read_ply_cloud(model_ply)[0]
     wt = torch.from_numpy(w.astype(np.float32)).to(dev)
     moved = torch.from_numpy(mpos).to(dev) @ wt[:, :3].T + wt[:, 3]
-    scene_pts = scene.pos[scene.valid] + scene.centroid
+    keep = scene.valid if own is None else scene.valid & own
+    scene_pts = scene.pos[keep] + scene.centroid
     med = float(torch.cdist(moved, scene_pts).amin(dim=1).median())
-    print(f"posed model median NN distance to the ingested scene {med:.6f} m "
+    print(f"{path}: posed model median NN distance to the ingested scene"
+          f"{'' if own is None else ' (its own points)'} {med:.6f} m "
           f"(limit {1.5 * cfg.distance_threshold})")
     if not med < 1.5 * cfg.distance_threshold:
-        raise AssertionError("the posed model does not land on the ingested scene")
+        raise AssertionError(f"{path}: the posed model does not land on the scene")
     return med
 
 
@@ -1230,6 +1285,289 @@ def _sweep_phase(torch, dev, dense_gate, dense_gate_reference, row_gather):
                 gathers=gather_rows, gather_max_abs_err=gather_err,
                 bases_per_sec=full["bases_per_sec"],
                 hypotheses_per_sec=full["hypotheses_per_sec"])
+
+
+def _median_wall(torch, fn, runs=3):
+    """Median host wall time of `runs` calls of fn, each ending in a
+    synchronize, after one call to warm up; returns (seconds, the last
+    result)."""
+    out = fn()
+    walls = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return sorted(walls)[runs // 2], out
+
+
+def _multi_phase(torch, dev, dense_gate, dense_gate_reference, row_gather):
+    import dataclasses
+
+    import numpy as np
+
+    from model_matching_tpu_torch import cli, multi
+    from model_matching_tpu_torch.config import get_preset
+    from model_matching_tpu_torch.model import load_model_pack
+    from model_matching_tpu_torch.scene import load_scene_multi
+    from model_matching_tpu_torch.synthetic import MULTI_SHELLS, write_synthetic_multi_scene
+
+    root = os.path.join(_ROOT, "build", "chip_smoke_multi")
+    shutil.rmtree(root, ignore_errors=True)
+    objs = [name for name, *_ in MULTI_SHELLS]
+    src = os.path.join(root, "class")
+    scene_dir, cfg, gts = write_synthetic_multi_scene(src)
+    edge_dir, _cfg, _gts = write_synthetic_multi_scene(os.path.join(root, "edge"), edge=True)
+    if cfg != get_preset("ycb").match:
+        raise AssertionError("the scene was not written at the ycb preset's camera")
+    t0 = time.perf_counter()
+    for obj in objs:
+        if cli.main(["model-preprocess", obj, "--repo-path", src]) != 0:
+            raise AssertionError(f"model-preprocess {obj} failed")
+    print(f"model-preprocess of {len(objs)} objects {time.perf_counter() - t0:.3f} s")
+
+    def paths(sdir):
+        maps = os.path.join(sdir, "probability_maps")
+        edge = os.path.join(maps, "edge.png")
+        return (os.path.join(sdir, "rgb.png"), os.path.join(sdir, "depth.png"),
+                [os.path.join(maps, f"{o}.png") for o in objs],
+                edge if os.path.exists(edge) else None)
+
+    def model_files(obj):
+        mdir = os.path.join(src, "models", obj)
+        return os.path.join(mdir, "model_search.ply"), os.path.join(mdir, "ppf_table.npz")
+
+    models = [load_model_pack(*model_files(o), cfg.max_model_points, standardize=True,
+                              device=dev) for o in objs]
+    out = {"root": root, "src": src, "scene": scene_dir, "edge_scene": edge_dir,
+           "objs": objs, "gts": gts, "cfg": cfg}
+    gate_rows = gather_rows = None
+    for path, sdir in (("class", scene_dir), ("edge", edge_dir)):
+        log = _log_events()
+        if path == "class":
+            gathers, gates = _record_gathers(), _record_gates()
+        dense_gate.launches = 0
+        row_gather.launches = 0
+        t0 = time.perf_counter()
+        rc = cli.main(["stocs-multi", sdir, ",".join(objs), "--repo-path", src])
+        wall = time.perf_counter() - t0
+        counts = {"dense_gate_launches": dense_gate.launches,
+                  "row_gather_launches": row_gather.launches}
+        if path == "class":
+            gathers.stop()
+            gates.stop()
+        log.stop()
+        for w in log.warnings:
+            print(f"warning logged: {w}")
+        if rc != 0:
+            raise AssertionError(f"stocs-multi failed on the {path} scene")
+        if min(counts.values()) <= 0:
+            raise AssertionError(f"stocs-multi ({path}) missed a kernel: {counts}")
+        scene, probs = load_scene_multi(*paths(sdir), cfg, device=dev)
+        if scene.has_edge != (path == "edge"):
+            raise AssertionError(f"the {path} scene loaded has_edge={scene.has_edge}")
+        # the direct call on the same packs gives what the command wrote
+        # (timed warm on the class path; once on the edge path, whose
+        # sequential sampling takes seconds)
+        if path == "class":
+            t_call, (best, poses, nhyp) = _median_wall(
+                torch, lambda: multi.match_all_objects(models, scene, probs, cfg))
+        else:
+            t0 = time.perf_counter()
+            best, poses, nhyp = multi.match_all_objects(models, scene, probs, cfg)
+            t_call = time.perf_counter() - t0
+        meds = []
+        for o, obj in enumerate(objs):
+            f = os.path.join(sdir, f"best_pose_candidate_{obj}.txt")
+            # its own object's points: probability 0.9 there, 0.12 elsewhere
+            med = _pose_file_on_scene(torch, dev, np, f, model_files(obj)[0], scene, cfg,
+                                      own=probs[o] > 0.5)
+            meds.append(med)
+            with open(f) as fh:
+                if fh.read().strip() != cli._pose_row(poses[o]):
+                    raise AssertionError(f"{f} differs from the direct call's pose")
+        keep = os.path.join(root, f"multi_{path}")
+        os.makedirs(keep)
+        for obj in objs:
+            shutil.move(os.path.join(sdir, f"best_pose_candidate_{obj}.txt"), keep)
+        out[path] = dict(counts, wall_s=wall, call_s=t_call, best_lcp=best.tolist(),
+                         hypotheses=nhyp.tolist(), median_nn_m=meds, poses_dir=keep)
+        print(f"stocs-multi {path}, {len(objs)} objects ({_gpu_name_and_limit()}): command "
+              f"{wall:.3f} s, match_all_objects on loaded packs {t_call * 1e3:.3f} ms "
+              f"({'warm, median of 3' if path == 'class' else 'second call'}); launches "
+              f"{json.dumps(counts)}; best_lcp {best.tolist()}, hypotheses "
+              f"{nhyp.tolist()}; posed models {[round(m, 6) for m in meds]} m from their "
+              f"objects (median NN, limit {1.5 * cfg.distance_threshold})")
+        if path == "class":
+            gate_rows = _check_recorded_gates(torch, gates.calls, dense_gate,
+                                              dense_gate_reference, "multi")
+            gather_rows, gather_err = _check_gathers(
+                torch, _recorded_gather_cases(gathers.calls), time_repeats=False)
+            gates.calls.clear()
+            gathers.calls.clear()
+            # per object: alone in a call (object 0 keeps its key, so its row
+            # must come back bit for bit), and each row with the others'
+            # priors zeroed
+            alone = []
+            for o in range(len(objs)):
+                t_o, (b1, p1, n1) = _median_wall(
+                    torch, lambda: multi.match_all_objects(
+                        [models[o]], scene, probs[o:o + 1], cfg), runs=3)
+                alone.append(t_o)
+                if o == 0 and not (b1[0] == best[0] and n1[0] == nhyp[0]
+                                   and np.array_equal(p1[0], poses[0])):
+                    raise AssertionError("object 0 alone differs from its row")
+                solo = torch.zeros_like(probs)
+                solo[o] = probs[o]
+                b2, p2, n2 = multi.match_all_objects(models, scene, solo, cfg)
+                if not (b2[o] == best[o] and n2[o] == nhyp[o]
+                        and np.array_equal(p2[o], poses[o])):
+                    raise AssertionError(f"object {o}'s row moved when the other "
+                                         f"priors were zeroed")
+            out["alone_s"] = alone
+            print(f"per object alone, warm ({_gpu_name_and_limit()}): "
+                  f"{[round(t * 1e3, 3) for t in alone]} ms; object 0 alone and every "
+                  f"row with the other priors zeroed equal to the three-object call")
+
+    # the card against the CPU on the small configuration
+    small = os.path.join(root, "small")
+    small_dir, small_cfg, _g = write_synthetic_multi_scene(small, scale=0.25)
+    small_cfg = dataclasses.replace(
+        small_cfg, number_of_bases=16, voxel_size=0.01, max_scene_points=4096,
+        max_pairs_per_bin=2048, maximum_congruent_sets=64)
+    res = {}
+    for d in ("cpu", dev):
+        sc, pr = load_scene_multi(*paths(small_dir), small_cfg, device=d)
+        res[str(d)] = multi.match_all_objects([m.to(d) for m in models], sc, pr, small_cfg)
+    (bc, pc, nc), (bg, pg, ng) = res["cpu"], res[str(dev)]
+    pose_err = float(np.abs(pc - pg).max())
+    print(f"160x120, 16 bases, 3 objects: card against CPU: hypotheses cpu {nc.tolist()} "
+          f"cuda {ng.tolist()}; best_lcp cpu {bc.tolist()} cuda {bg.tolist()}; pose max "
+          f"abs diff {pose_err:.3e}")
+    if (not np.array_equal(nc, ng) or float(np.abs(bc - bg).max()) > 1e-5
+            or pose_err > 1e-4 or not (nc > 0).all()):
+        raise AssertionError("the multi-object path on the card disagrees with the CPU")
+    return dict(out, gates=gate_rows, gate_max_abs_err=gate_rows["max_abs_err"],
+                gathers=gather_rows, gather_max_abs_err=gather_err)
+
+
+def _commands_phase(torch, dev, multi):
+    import numpy as np
+
+    from model_matching_tpu_torch import cli
+
+    src, scene_dir, edge_dir = multi["src"], multi["scene"], multi["edge_scene"]
+    objs, root = multi["objs"], multi["root"]
+
+    def pose_files(sdir, names):
+        texts = {}
+        for obj in names:
+            f = os.path.join(sdir, f"best_pose_candidate_{obj}.txt")
+            with open(f) as fh:
+                texts[obj] = fh.read()
+            os.remove(f)
+        return texts
+
+    # stocs-single once per object, then stocs-batch of all three
+    single_s = []
+    for obj in objs:
+        t0 = time.perf_counter()
+        if cli.main(["stocs-single", scene_dir, obj, "--repo-path", src]) != 0:
+            raise AssertionError(f"stocs-single {obj} failed")
+        single_s.append(time.perf_counter() - t0)
+    single = pose_files(scene_dir, objs)
+    single_dir = os.path.join(root, "single")
+    os.makedirs(single_dir)
+    for obj, text in single.items():
+        with open(os.path.join(single_dir, f"best_pose_candidate_{obj}.txt"), "w") as f:
+            f.write(text)
+    t0 = time.perf_counter()
+    if cli.main(["stocs-batch", scene_dir, ",".join(objs), "--repo-path", src]) != 0:
+        raise AssertionError("stocs-batch failed")
+    batch_s = time.perf_counter() - t0
+    batch = pose_files(scene_dir, objs)
+    if batch != single:
+        raise AssertionError("stocs-batch wrote other pose files than stocs-single")
+    if cli.main(["stocs-single", edge_dir, objs[0], "--repo-path", src]) != 0:
+        raise AssertionError("stocs-single failed on the edge scene")
+    edge_single = pose_files(edge_dir, objs[:1])[objs[0]]
+    m = multi["class"]
+    print(f"stocs-single x {len(objs)} ({_gpu_name_and_limit()}): "
+          f"{[round(t, 3) for t in single_s]} s, {sum(single_s):.3f} s in all; stocs-batch "
+          f"{batch_s:.3f} s, pose files equal to stocs-single's; stocs-multi command "
+          f"{m['wall_s']:.3f} s, warm match_all_objects {m['call_s'] * 1e3:.3f} ms")
+
+    # serve in a fresh process: five requests and quit
+    reqs = [f"{scene_dir} {o}" for o in objs] + [f"{edge_dir} {objs[0]}",
+                                                 "a bad request line", "quit"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "model_matching_tpu_torch.cli", "serve", "--repo-path", src],
+        input="\n".join(reqs) + "\n", capture_output=True, text=True, timeout=600,
+        cwd=_ROOT)
+    serve_s = time.perf_counter() - t0
+    lines = [l for l in proc.stdout.splitlines() if l == "READY" or l.startswith(("OK", "ERR"))]
+    events = [json.loads(l.split(" INFO ", 1)[1]) for l in proc.stderr.splitlines()
+              if l.startswith("[mm-torch] INFO {")]
+    events = [e for e in events if e.get("event") == "serve_request"]
+    if proc.returncode != 0 or [l.split()[0] for l in lines] != [
+            "READY", "OK", "OK", "OK", "OK", "ERR"]:
+        raise AssertionError(f"serve answered {lines} (rc {proc.returncode}):\n"
+                             f"{proc.stderr[-4000:]}")
+    want = [single[o].strip() for o in objs] + [edge_single.strip()]
+    for line, row in zip(lines[1:5], want):
+        if " ".join(line.split()[1:13]) != row:
+            raise AssertionError(f"serve answered {line!r}, stocs-single wrote {row!r}")
+    if lines[5] != "ERR usage: <scene_path> <object>" or len(events) != 4:
+        raise AssertionError(f"serve's error line or events are wrong: {lines[5]}, {events}")
+    if any(e["kernels_loaded"] or e["kernels_built"] for e in events[1:]) or any(
+            e["kernels_built"] for e in events):
+        raise AssertionError(f"serve loaded or built kernels after its first request: {events}")
+    print(f"serve in a fresh process ({_gpu_name_and_limit()}): {serve_s:.3f} s in all; "
+          f"first request {events[0]['seconds'] * 1e3:.3f} ms (kernels loaded "
+          f"{events[0]['kernels_loaded']}, model loaded {events[0]['model_loaded']}), "
+          f"then {[round(e['seconds'] * 1e3, 3) for e in events[1:]]} ms (the last on "
+          f"the edge scene); OK rows equal to the stocs-single files; no kernel load or "
+          f"build after the first request")
+
+    # eval: ADD-S of the stocs-multi poses (pose files) and of the
+    # stocs-single poses (BOP scene_gt.json) against the written truth
+    gt_dir = os.path.join(src, "gt")
+    evals = {}
+    for i, obj in enumerate(objs):
+        model = os.path.join(src, "models", obj, "textured_vertices.ply")
+        name = f"best_pose_candidate_{obj}.txt"
+        for what, est, gt in (
+                ("multi", os.path.join(multi["class"]["poses_dir"], name),
+                 [os.path.join(gt_dir, name)]),
+                ("single", os.path.join(single_dir, name),
+                 [os.path.join(gt_dir, "scene_gt.json"), "--im-id", "0",
+                  "--obj-id", str(i + 1)])):
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                rc = cli.main(["eval", est, *gt, "--model", model])
+            report = json.loads(text.getvalue())
+            if rc != 0 or report["adds_pass_rate"] != 1.0:
+                raise AssertionError(f"eval of the {what} pose of {obj}: {report}")
+            evals[f"{what} {obj}"] = (report["adds_mean"], report["threshold"])
+    print("eval, ADD-S mean / threshold (m): " + json.dumps(
+        {k: [round(v, 6) for v in vs] for k, vs in evals.items()}))
+
+    # --profile
+    prof_dir = os.path.join(root, "profile")
+    if cli.main(["stocs-single", scene_dir, objs[0], "--repo-path", src,
+                 "--profile", prof_dir]) != 0:
+        raise AssertionError("stocs-single --profile failed")
+    traces = [f for f in os.listdir(prof_dir) if f.endswith(".json")]
+    if len(traces) != 1:
+        raise AssertionError(f"--profile wrote {traces}")
+    with open(os.path.join(prof_dir, traces[0])) as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
+    found = {k: sum(k in n for n in names) for k in ("dense_gate_kernel", "row_gather")}
+    print(f"--profile trace {traces[0]}: {len(names)} events; kernel events {found}")
+    if min(found.values()) <= 0:
+        raise AssertionError(f"the profile trace does not name both kernels: {found}")
 
 
 if __name__ == "__main__":

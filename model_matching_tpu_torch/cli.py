@@ -1,10 +1,14 @@
-"""Command-line interface: the reference's two entry points, on the card.
+"""Command-line interface, on the card.
 
     python -m model_matching_tpu_torch.cli model-preprocess <object> [options]
     python -m model_matching_tpu_torch.cli stocs-single <scene_path> <object> [options]
+    python -m model_matching_tpu_torch.cli stocs-batch <scene_path> <obj1,obj2,...> [options]
+    python -m model_matching_tpu_torch.cli stocs-multi <scene_path> <obj1,obj2,...> [options]
+    python -m model_matching_tpu_torch.cli serve [options]      (requests on stdin)
+    python -m model_matching_tpu_torch.cli eval <est> <gt> --model <ply> [options]
 
-Counterpart of ``model_matching_tpu/cli.py`` for these two commands, with
-its flags, artifact names and formats: models/<object>/model_search.ply +
+Counterpart of ``model_matching_tpu/cli.py``, with its flags, messages,
+artifact names and formats: models/<object>/model_search.ply +
 ppf_table.npz, <scene>/best_pose_candidate_<object>.txt (12 floats,
 row-major 3x4, one line) and <scene>/dbg/{sampled_scene,best_pose,
 scene}.ply. A scene with probability_maps/edge.png takes the instance path
@@ -15,10 +19,15 @@ the chunked sweep (`--sweep-chunk`, `--sweep-checkpoint`,
 `--sweep-checkpoint-every`, `--sweep-stop-after`) on the one device. Under
 `--sweep` the JAX package's command drops `--cluster` and `--heatmap`; this
 one writes the pool's clusters, the heatmap and the overlay of the sweep's
-best pose. `--device` picks the device (default cuda; without a card the
-commands fail unless given `--device cpu`). `--profile` and the commands
-not ported yet exit nonzero with the ROADMAP item that will bring them.
-`main(argv)` runs in-process.
+best pose. `--profile DIR` writes a torch.profiler Chrome trace of the run
+(or the sweep) under DIR. `stocs-batch` runs `stocs-single` once per
+object; `stocs-multi` matches every object against one shared scene
+(multi.py) and writes each object's pose file; `serve` answers
+'<scene_path> <object>' lines with 'OK <12 floats> <lcp>' or 'ERR
+<reason>'; `eval` prints the ADD / ADD-S JSON document of pose files
+against ground truth (pose files, or a BOP scene_gt.json). `--device`
+picks the device (default cuda; without a card the commands fail unless
+given `--device cpu`). `main(argv)` runs in-process.
 """
 
 from __future__ import annotations
@@ -28,13 +37,9 @@ import dataclasses
 import os
 import shutil
 import sys
+import time
 
 import numpy as np
-
-# flags of paths not ported yet -> the ROADMAP.md Queue 1 item that ports them
-_NOT_PORTED = {
-    "profile": "item 8, 'eval, io/bop, stocs-batch, stocs-multi and serve' (profiling)",
-}
 
 
 def _add_common(p):
@@ -88,6 +93,14 @@ def _model_dirs(args, object_name):
         args.output_root or args.repo_path, "models", object_name
     )
     return src_root, out_root
+
+
+def _scene_out(args):
+    """Where a scene's artifacts go: <output-root>/<scene name>, or the
+    scene directory itself."""
+    if args.output_root:
+        return os.path.join(args.output_root, os.path.basename(args.scene_path.rstrip("/")))
+    return args.scene_path
 
 
 def _device(args):
@@ -182,6 +195,30 @@ def _write_heatmap(dbg, scene_path, object_name, scene, est, model, cfg, live,
         )
 
 
+def _profiled(out_dir, dev, fn):
+    """fn() under torch.profiler when `out_dir` is given: CUDA activity on
+    the card, CPU activity on the CPU; the Chrome trace is written under
+    `out_dir` (also when fn raises)."""
+    if out_dir is None:
+        return fn()
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    act = ProfilerActivity.CUDA if dev.type == "cuda" else ProfilerActivity.CPU
+    prof = profile(activities=[act])
+    try:
+        with prof:
+            out = fn()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        return out
+    finally:
+        os.makedirs(out_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            out_dir, f"stocs_single.{os.getpid()}.{time.time_ns()}.pt.trace.json"))
+        print(f"profiler trace written to {out_dir}")
+
+
 def cmd_stocs_single(argv):
     import torch
 
@@ -206,7 +243,7 @@ def cmd_stocs_single(argv):
     p.add_argument("--heatmap", action="store_true",
                    help="write probability heatmap + pose overlay PNGs")
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="write a profiler trace of the run to DIR (not ported)")
+                   help="write a torch.profiler trace of the run to DIR")
     p.add_argument("--sweep", type=int, default=None, metavar="TOTAL_BASES",
                    help="large hypothesis sweep: process TOTAL_BASES in "
                         "chunks (StocsEstimator.run_sweep) instead of one "
@@ -231,12 +268,6 @@ def cmd_stocs_single(argv):
         print("error: --sweep-stop-after requires --sweep-checkpoint "
               "(the remaining chunks must be resumable)")
         return 1
-    for flag, item in _NOT_PORTED.items():
-        if getattr(args, flag) not in (None, False):
-            print(f"error: --{flag.replace('_', '-')} belongs to a path the "
-                  f"PyTorch port does not have yet (ROADMAP.md Queue 1, {item}); "
-                  f"use the JAX package's CLI (python -m model_matching_tpu.cli)")
-            return 2
     dev = _device(args)
 
     cfg = get_preset(args.preset).match
@@ -250,11 +281,7 @@ def cmd_stocs_single(argv):
     model_ply = os.path.join(model_root, "model_search.ply")
     table_path = os.path.join(model_root, "ppf_table.npz")
 
-    scene_out = (
-        os.path.join(args.output_root, os.path.basename(args.scene_path.rstrip("/")))
-        if args.output_root
-        else args.scene_path
-    )
+    scene_out = _scene_out(args)
     _guard_writable(scene_out)
     dbg = os.path.join(scene_out, "dbg")
     shutil.rmtree(dbg, ignore_errors=True)
@@ -296,12 +323,13 @@ def cmd_stocs_single(argv):
     if args.sweep:
         # always the one device of the packs (the JAX package's command
         # shards the sweep when it sees several devices)
-        best_lcp, best_w, cl_t, cl_s, stats = est.run_sweep(
-            args.sweep, chunk=args.sweep_chunk,
-            checkpoint_path=args.sweep_checkpoint,
-            checkpoint_every=args.sweep_checkpoint_every,
-            stop_after_chunks=args.sweep_stop_after,
-        )
+        best_lcp, best_w, cl_t, cl_s, stats = _profiled(
+            args.profile, dev, lambda: est.run_sweep(
+                args.sweep, chunk=args.sweep_chunk,
+                checkpoint_path=args.sweep_checkpoint,
+                checkpoint_every=args.sweep_checkpoint_every,
+                stop_after_chunks=args.sweep_stop_after,
+            ))
         if not stats.get("completed", True):
             print(f"sweep: stopped after chunk {stats['next_chunk']} — "
                   f"checkpoint at {args.sweep_checkpoint}; re-run the same "
@@ -320,7 +348,8 @@ def cmd_stocs_single(argv):
                 cl_t, cl_s)
         return 0
 
-    result = est.run(coarse_to_fine=not args.no_coarse_to_fine)
+    result = _profiled(args.profile, dev,
+                       lambda: est.run(coarse_to_fine=not args.no_coarse_to_fine))
 
     if est.seg_masks is not None:
         # seg_mask_<n>.png debug artifacts, one per base that has a segment
@@ -368,21 +397,318 @@ def cmd_stocs_single(argv):
     return 0
 
 
+def cmd_stocs_batch(argv):
+    """Match several objects against one scene in one process: stocs-single
+    once per object, timed. The first object pays for loading the kernel
+    library (and building it in a fresh checkout); the later ones reuse it.
+    Exits with the first failing object's code."""
+    p = argparse.ArgumentParser(prog="stocs-batch")
+    p.add_argument("scene_path")
+    p.add_argument("objects", help="comma-separated object names")
+    _add_common(p)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--number-of-bases", type=int, default=None)
+    args = p.parse_args(argv)
+
+    objects = [o for o in args.objects.split(",") if o]
+    rc = 0
+    for i, obj in enumerate(objects):
+        t0 = time.perf_counter()
+        sub = [args.scene_path, obj, "--preset", args.preset,
+               "--repo-path", args.repo_path, "--seed", str(args.seed),
+               "--device", args.device]
+        if args.output_root:
+            sub += ["--output-root", args.output_root]
+        if args.number_of_bases is not None:
+            sub += ["--number-of-bases", str(args.number_of_bases)]
+        r = cmd_stocs_single(sub)
+        rc = rc or r
+        secs = time.perf_counter() - t0
+        print(f"[batch] {obj}: {secs:.1f}s" + (" (first object)" if i == 0 else ""))
+    return rc
+
+
+def cmd_stocs_multi(argv):
+    """All objects against one scene: one shared scene geometry, per-object
+    probability vectors (multi.py)."""
+    from .config import get_preset
+    from .model import load_model_pack
+    from .multi import match_all_objects
+    from .scene import load_scene_multi
+
+    p = argparse.ArgumentParser(prog="stocs-multi")
+    p.add_argument("scene_path")
+    p.add_argument("objects", help="comma-separated object names")
+    _add_common(p)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--number-of-bases", type=int, default=None)
+    args = p.parse_args(argv)
+    dev = _device(args)
+
+    cfg = get_preset(args.preset).match
+    if args.number_of_bases is not None:
+        cfg = dataclasses.replace(cfg, number_of_bases=args.number_of_bases)
+
+    objects = [o for o in args.objects.split(",") if o]
+    if not _check_scene_inputs(args.scene_path, objects):
+        return 1
+    for obj in objects:
+        _s, root = _model_dirs(args, obj)
+        if not os.path.exists(os.path.join(root, "model_search.ply")):
+            print(f"error: {root}/model_search.ply not found — run "
+                  f"'model-preprocess {obj}' first")
+            return 1
+    models = []
+    for obj in objects:
+        _s, root = _model_dirs(args, obj)
+        models.append(load_model_pack(
+            os.path.join(root, "model_search.ply"),
+            os.path.join(root, "ppf_table.npz"),
+            cfg.max_model_points, standardize=True, device=dev,
+        ))
+    edge_path = os.path.join(args.scene_path, "probability_maps", "edge.png")
+    scene, probs = load_scene_multi(
+        os.path.join(args.scene_path, "rgb.png"),
+        os.path.join(args.scene_path, "depth.png"),
+        [os.path.join(args.scene_path, "probability_maps", f"{o}.png")
+         for o in objects],
+        edge_path if os.path.exists(edge_path) else None, cfg, device=dev,
+    )
+    if scene.has_edge:
+        print("edge-mapped scene: instance path (per-object sequential "
+              "dispersion decay; fused phases 2-4)")
+    best, poses, nhyp = match_all_objects(models, scene, probs, cfg, seed=args.seed)
+    out_root = _scene_out(args)
+    _guard_writable(out_root)
+    os.makedirs(out_root, exist_ok=True)
+    for o, obj in enumerate(objects):
+        lcp = float(best[o])
+        if lcp <= 0.0:
+            # no hypothesis scored above 0: the pose is arbitrary, nothing
+            # is written (as stocs-single)
+            print(f"{obj}: no pose found (0 scoring hypotheses of {int(nhyp[o])})")
+            continue
+        path = os.path.join(out_root, f"best_pose_candidate_{obj}.txt")
+        _write_pose(path, poses[o])
+        print(f"{obj}: lcp={lcp:.4f} hypotheses={int(nhyp[o])} -> {path}")
+    return 0
+
+
+def cmd_serve(argv):
+    """Long-running estimation service: requests stream on stdin as
+    '<scene_path> <object>' lines, each answered by one line 'OK <12 pose
+    floats> <lcp>' or 'ERR <reason>'; 'quit' or 'exit' ends it, and an
+    exception in a request is answered with ERR and does not end the loop.
+    What it amortizes across requests is the process start, the loading
+    (and in a fresh checkout the nvcc build) of the CUDA kernels
+    (ops/_build.py) and the model packs, cached per object; there is no
+    compilation to share. The packs load as stocs-single loads them, so an
+    OK line carries the pose stocs-single writes for the same request (the
+    JAX package's serve pads them to shared shape floors, which only its
+    compiled programs need). Each request logs a `serve_request` event
+    with its seconds and whether it loaded a model, loaded the kernels or
+    built them."""
+    from .config import get_preset
+    from .estimator import StocsEstimator
+    from .model import load_model_pack
+    from .ops import _build
+    from .scene import load_scene
+    from .utils.log import log_event
+
+    p = argparse.ArgumentParser(prog="serve")
+    _add_common(p)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--number-of-bases", type=int, default=None)
+    args = p.parse_args(argv)
+    dev = _device(args)
+
+    cfg = get_preset(args.preset).match
+    if args.number_of_bases is not None:
+        cfg = dataclasses.replace(cfg, number_of_bases=args.number_of_bases)
+    cfg = dataclasses.replace(cfg, seed=args.seed)
+
+    models = {}
+    print("READY", flush=True)
+    for line in sys.stdin:
+        parts = line.split()
+        if not parts:
+            continue
+        if parts[0] in ("quit", "exit"):
+            break
+        if len(parts) != 2:
+            print("ERR usage: <scene_path> <object>", flush=True)
+            continue
+        scene_path, obj = parts
+        t0 = time.perf_counter()
+        loads, builds = _build.loads, _build.builds
+        new_model = obj not in models
+        answer = "ERR"
+        try:
+            if new_model:
+                _s, root = _model_dirs(args, obj)
+                models[obj] = load_model_pack(
+                    os.path.join(root, "model_search.ply"),
+                    os.path.join(root, "ppf_table.npz"),
+                    cfg.max_model_points, device=dev,
+                )
+            edge = os.path.join(scene_path, "probability_maps", "edge.png")
+            scene = load_scene(
+                os.path.join(scene_path, "rgb.png"),
+                os.path.join(scene_path, "depth.png"),
+                os.path.join(scene_path, "probability_maps", f"{obj}.png"),
+                edge if os.path.exists(edge) else None,
+                cfg, device=dev,
+            )
+            result = StocsEstimator(models[obj], scene, cfg).run(verbose=False)
+            if result.best_index < 0:
+                print("ERR no pose found", flush=True)
+            else:
+                answer = "OK"
+                print(f"OK {_pose_row(result.best_world_transform)} "
+                      f"{result.best_lcp:g}", flush=True)
+        except Exception as e:  # answer and keep serving
+            from .utils.log import get_logger
+
+            get_logger().exception("serve: request %r failed", line.strip())
+            print(f"ERR {type(e).__name__}: {e}", flush=True)
+        log_event("serve_request", scene=scene_path, object=obj, answer=answer,
+                  seconds=time.perf_counter() - t0,
+                  model_loaded=new_model and obj in models,
+                  kernels_loaded=_build.loads > loads,
+                  kernels_built=_build.builds > builds)
+    return 0
+
+
+def cmd_eval(argv):
+    """Pose-accuracy evaluation: ADD / ADD-S / pass-rate of estimated pose
+    file(s) against ground-truth pose file(s) over a model PLY, printed as
+    one JSON document (the JAX package's keys); the metrics run on
+    `--device`."""
+    import json
+
+    from . import eval as ev
+    from .io import ply
+
+    p = argparse.ArgumentParser(prog="eval")
+    p.add_argument("est", help="estimated pose file (one pose per line, "
+                               "12 or 16 floats) or directory of "
+                               "best_pose_candidate_*.txt files")
+    p.add_argument("gt", help="ground-truth pose file, a directory with "
+                              "files named like the estimates, or a BOP "
+                              "scene_gt.json (then pass --im-id/--obj-id)")
+    p.add_argument("--im-id", type=int, default=None,
+                   help="BOP image id inside scene_gt.json")
+    p.add_argument("--obj-id", type=int, default=None,
+                   help="BOP object id inside scene_gt.json (multiple GT "
+                        "instances score each estimate against its "
+                        "best-matching instance)")
+    p.add_argument("--model", required=True,
+                   help="model PLY the poses transform (model_search.ply "
+                        "or textured_vertices.ply)")
+    p.add_argument("--model-scale", type=float, default=1.0,
+                   help="scale applied to model vertices (1/1000 for "
+                        "mm-unit files, as in the linemod preset)")
+    p.add_argument("--threshold-fraction", type=float, default=0.1,
+                   help="pass if metric < fraction * model diameter")
+    p.add_argument("--out", default=None, help="also write the JSON here")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = p.parse_args(argv)
+    dev = _device(args)
+
+    if not os.path.exists(args.model):
+        print(f"error: model {args.model} not found")
+        return 1
+    mpos, _n, _c = ply.read_ply_cloud(args.model, scale=args.model_scale)
+
+    bop_gt = None
+    if args.gt.endswith(".json"):
+        from .io import bop
+
+        if args.im_id is None or args.obj_id is None:
+            print("error: a scene_gt.json ground truth needs --im-id "
+                  "and --obj-id")
+            return 1
+        try:
+            bop_gt = bop.gt_poses(bop.load_scene_gt(args.gt), args.im_id, args.obj_id)
+        except KeyError as e:
+            print(f"error: {e}")
+            return 1
+
+    if os.path.isdir(args.est):
+        names = sorted(
+            f for f in os.listdir(args.est)
+            if f.startswith("best_pose_candidate_") and f.endswith(".txt")
+        )
+        if not names:
+            print(f"error: no best_pose_candidate_*.txt under {args.est}")
+            return 1
+        if bop_gt is not None:
+            # one scene_gt.json serves every estimate file
+            pairs = [(os.path.join(args.est, n), args.gt) for n in names]
+        else:
+            pairs = [(os.path.join(args.est, n), os.path.join(args.gt, n))
+                     for n in names]
+            missing = [g for _, g in pairs if not os.path.exists(g)]
+            if missing:
+                print("error: missing ground-truth files:\n  "
+                      + "\n  ".join(missing))
+                return 1
+    else:
+        pairs = [(args.est, args.gt)]
+
+    dia = ev.model_diameter(mpos)
+    per_file = {}
+    for est_path, gt_path in pairs:
+        per_file[os.path.basename(est_path)] = ev.evaluate_pose_files(
+            est_path, gt_path, mpos,
+            threshold_fraction=args.threshold_fraction, diameter=dia,
+            gt_poses=bop_gt, device=dev,
+        )
+    all_add = [v for r in per_file.values() for v in r["add"]]
+    all_adds = [v for r in per_file.values() for v in r["adds"]]
+    thr = args.threshold_fraction * dia
+    report = {
+        "model": args.model,
+        "model_diameter": dia,
+        "threshold": thr,
+        "num_poses": len(all_add),
+        "add_mean": float(np.mean(all_add)),
+        "adds_mean": float(np.mean(all_adds)),
+        "add_pass_rate": float(np.mean([v < thr for v in all_add])),
+        "adds_pass_rate": float(np.mean([v < thr for v in all_adds])),
+        "files": per_file,
+    }
+    text = json.dumps(report, indent=2)
+    print(text)
+    if args.out:
+        _guard_writable(args.out)
+        with open(args.out, "w") as f:
+            f.write(text + "\n")
+    return 0
+
+
+_COMMANDS = {
+    "model-preprocess": cmd_model_preprocess,
+    "stocs-single": cmd_stocs_single,
+    "stocs-batch": cmd_stocs_batch,
+    "stocs-multi": cmd_stocs_multi,
+    "serve": cmd_serve,
+    "eval": cmd_eval,
+}
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if not argv or argv[0] in ("-h", "--help"):
         print(__doc__)
         return 0
     cmd, rest = argv[0], argv[1:]
-    if cmd == "model-preprocess":
-        return cmd_model_preprocess(rest)
-    if cmd == "stocs-single":
-        return cmd_stocs_single(rest)
-    if cmd in ("stocs-batch", "stocs-multi", "serve", "eval"):
-        print(f"error: {cmd} is not ported to PyTorch yet (ROADMAP.md Queue 1, "
-              f"item 8); use python -m model_matching_tpu.cli {cmd}")
-        return 2
-    print(f"unknown command {cmd!r}; use model-preprocess or stocs-single")
+    if cmd in _COMMANDS:
+        return _COMMANDS[cmd](rest)
+    print(
+        f"unknown command {cmd!r}; use model-preprocess, stocs-single, "
+        "stocs-batch, stocs-multi, serve or eval"
+    )
     return 2
 
 

@@ -193,10 +193,15 @@ def _unit_cube_params(model_pos):
 
 def d2_test_implied(model_pos, cfg: MatchConfig) -> bool:
     """Host-side check: does same-cell membership imply the distance test
-    (so the gate can skip it)? Reads the model positions once."""
+    (so the gate can skip it)? Reads the model positions once. Stacked [O,
+    M, 3] positions (multi.py) must hold for every object."""
     if cfg.congruent_distance_mode != "cell":
         return False
     mp = np.asarray(model_pos.detach().cpu().numpy(), dtype=np.float32)
+    return all(_d2_implied_host(m, cfg) for m in mp.reshape((-1,) + mp.shape[-2:]))
+
+
+def _d2_implied_host(mp: np.ndarray, cfg: MatchConfig) -> bool:
     lo, hi = mp.min(axis=0), mp.max(axis=0)
     ratio = np.float32((hi - lo + np.float32(0.001)).max())
     eps_n = np.float32(cfg.distance_threshold) / ratio

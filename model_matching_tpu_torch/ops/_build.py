@@ -31,6 +31,8 @@ NVCC_FLAGS = (
 _lib = None
 build_seconds = None   # wall time of this process's build, None if reused
 build_log = ""         # nvcc's output (register and shared-memory use)
+loads = 0              # times this process opened the library
+builds = 0             # times this process ran nvcc
 
 
 def _nvcc() -> str:
@@ -75,7 +77,7 @@ def launch(dev: torch.device, fn, *args) -> int:
 
 def load():
     """The kernels' shared library, built on first use."""
-    global _lib, build_seconds, build_log
+    global _lib, build_seconds, build_log, loads, builds
     if _lib is not None:
         return _lib
     if raw_stream is None:
@@ -122,5 +124,7 @@ def load():
         for obj in objs:
             obj.unlink()
         build_seconds = time.perf_counter() - t0
+        builds += 1
     _lib = _declare(ctypes.CDLL(str(lib_path)))
+    loads += 1
     return _lib

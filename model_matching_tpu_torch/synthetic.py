@@ -11,7 +11,9 @@ blocked layout.
 
 `write_synthetic_scene` renders the same shell at the same pose into an
 RGB-D frame and writes it, with a dense source cloud of the object, in the
-files the command-line tools read.
+files the command-line tools read. `write_synthetic_multi_scene` renders
+three distinct shells (`MULTI_SHELLS`) into one frame through a z-buffer
+and writes each object's files, probability map and ground truth.
 
 Both have an edge-mapped variant (`edge=True`) that sends the estimator
 down the instance path: in memory the points are laid on an image grid
@@ -41,30 +43,52 @@ from .utils.device import require
 _AXES = (0.08, 0.065, 0.05)
 
 
-def synthetic_arrays(num_model=320, num_scene=1024, seed=0):
-    """(model pos, model normal, scene pos, scene normal, scene prob,
-    ground-truth 4x4 pose) as float32 numpy arrays."""
-    rng = np.random.default_rng(seed)
-    u = rng.uniform(0, 2 * np.pi, num_model)
-    v = rng.uniform(np.pi / 2, np.pi, num_model)
-    a, b, c = _AXES
-    mpos = np.stack(
+# the shells of write_synthetic_multi_scene: name, semi-axes, and the pose
+# (a turn about the camera's z axis in radians, a translation in metres);
+# the first is the shell and pose of synthetic_arrays
+MULTI_SHELLS = (
+    ("shell_a", _AXES, 0.7, (0.05, -0.1, 0.8)),
+    ("shell_b", (0.05, 0.09, 0.04), -0.4, (-0.12, 0.06, 0.82)),
+    ("shell_c", (0.065, 0.045, 0.035), 1.9, (0.13, 0.06, 0.78)),
+)
+
+
+def _shell(rng, n, axes):
+    """n points of the half-ellipsoid shell with semi-axes `axes` (z <= 0)
+    and their outward normals, float32."""
+    u = rng.uniform(0, 2 * np.pi, n)
+    v = rng.uniform(np.pi / 2, np.pi, n)
+    a, b, c = axes
+    pos = np.stack(
         [a * np.sin(v) * np.cos(u), b * np.sin(v) * np.sin(u), c * np.cos(v)],
         axis=1,
     ).astype(np.float32)
-    mnrm = np.stack(
+    nrm = np.stack(
         [np.sin(v) * np.cos(u) / a, np.sin(v) * np.sin(u) / b, np.cos(v) / c],
         axis=1,
     ).astype(np.float32)
-    mnrm /= np.linalg.norm(mnrm, axis=1, keepdims=True)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    return pos, nrm
 
+
+def _pose(th, t):
+    """4x4 float32: a turn of `th` radians about z, then translation t."""
     gt = np.eye(4, dtype=np.float32)
-    th = 0.7
     gt[:3, :3] = np.array(
         [[np.cos(th), -np.sin(th), 0], [np.sin(th), np.cos(th), 0], [0, 0, 1]],
         np.float32,
     )
-    gt[:3, 3] = [0.05, -0.1, 0.8]
+    gt[:3, 3] = t
+    return gt
+
+
+def synthetic_arrays(num_model=320, num_scene=1024, seed=0):
+    """(model pos, model normal, scene pos, scene normal, scene prob,
+    ground-truth 4x4 pose) as float32 numpy arrays."""
+    rng = np.random.default_rng(seed)
+    mpos, mnrm = _shell(rng, num_model, _AXES)
+    _name, _axes, th, t = MULTI_SHELLS[0]
+    gt = _pose(th, t)
 
     sobj = mpos @ gt[:3, :3].T + gt[:3, 3]
     snrm_obj = mnrm @ gt[:3, :3].T
@@ -196,6 +220,29 @@ def synthetic_setup(num_model=320, num_scene=1024, num_bases=16,
     return model.to(device), scene.to(device), cfg
 
 
+def _ray_depth(d, axes, gt):
+    """Depth of the first hit of the rays s * d (d [H, W, 3] with d_z = 1)
+    on the visible half of the shell `axes` posed by `gt` (float64), and
+    the hit mask."""
+    rot, t = gt[:3, :3], gt[:3, 3]
+    o_m = -rot.T @ t
+    d_m = d @ rot                                     # (R^T d) per pixel
+    inv2 = 1.0 / np.square(np.asarray(axes))
+    qa = (d_m * d_m * inv2).sum(-1)
+    qb = 2.0 * (d_m * o_m * inv2).sum(-1)
+    qc = (o_m * o_m * inv2).sum() - 1.0
+    disc = qb * qb - 4 * qa * qc
+    s = (-qb - np.sqrt(np.maximum(disc, 0.0))) / (2 * qa)
+    z_model = o_m[2] + s * d_m[..., 2]
+    return s, (disc > 0) & (s > 0) & (z_model <= 0)
+
+
+def _camera_rays(camera, width, height):
+    fx, cx, fy, cy = camera
+    rows, cols = np.meshgrid(np.arange(height), np.arange(width), indexing="ij")
+    return np.stack([(cols - cx) / fx, (rows - cy) / fy, np.ones_like(cols, float)], -1)
+
+
 def synthetic_rgbd(camera, width=640, height=480, depth_scale=1e-4,
                    probability_scale=1e-4, seed=0):
     """Render the shell at its ground-truth pose over a plane 0.9025 m from
@@ -207,22 +254,8 @@ def synthetic_rgbd(camera, width=640, height=480, depth_scale=1e-4,
     0.12 on the plane. At 640x480 the ycb preset keeps about 10,000 scene
     points, under its 16,384-point cap."""
     rng = np.random.default_rng(seed)
-    fx, cx, fy, cy = camera
     gt = synthetic_arrays(1, 1, 0)[5].astype(np.float64)
-    rows, cols = np.meshgrid(np.arange(height), np.arange(width), indexing="ij")
-    d = np.stack([(cols - cx) / fx, (rows - cy) / fy, np.ones_like(cols, float)], -1)
-    # ray s * d against the shell, in the model frame
-    rot, t = gt[:3, :3], gt[:3, 3]
-    o_m = -rot.T @ t
-    d_m = d @ rot                                     # (R^T d) per pixel
-    inv2 = 1.0 / np.square(np.asarray(_AXES))
-    qa = (d_m * d_m * inv2).sum(-1)
-    qb = 2.0 * (d_m * o_m * inv2).sum(-1)
-    qc = (o_m * o_m * inv2).sum() - 1.0
-    disc = qb * qb - 4 * qa * qc
-    s = (-qb - np.sqrt(np.maximum(disc, 0.0))) / (2 * qa)
-    z_model = o_m[2] + s * d_m[..., 2]
-    obj = (disc > 0) & (s > 0) & (z_model <= 0)
+    s, obj = _ray_depth(_camera_rays(camera, width, height), _AXES, gt)
     z = np.where(obj, s, 0.9025) + rng.normal(0.0, 0.0005, s.shape)
     depth = np.clip(np.round(z / depth_scale), 1, 65535).astype(np.uint16)
     prob = np.where(obj, round(0.9 / probability_scale),
@@ -288,3 +321,86 @@ def write_synthetic_scene(root, object_name="synthetic_shell", preset="ycb",
         image.write_u8(os.path.join(scene_dir, "probability_maps", "edge.png"),
                        synthetic_edge_map(prob, cfg.probability_scale))
     return scene_dir, cfg, gt
+
+
+def write_synthetic_multi_scene(root, preset="ycb", scale=1.0,
+                                num_source_points=8000, seed=0, edge=False):
+    """Write one RGB-D frame holding the three shells of MULTI_SHELLS, each
+    at its own pose over the plane of synthetic_rgbd (a z-buffer decides
+    which surface a pixel sees; 0.5 mm depth noise), as the command-line
+    tools read it:
+
+        <root>/models/<object>/textured_vertices.ply     (each object)
+        <root>/scene/{rgb.png, depth.png}
+        <root>/scene/probability_maps/<object>.png      (0.9 on the object,
+                                                          0.12 elsewhere)
+        <root>/gt/best_pose_candidate_<object>.txt      (12 floats, the
+                                                          artifact format)
+        <root>/gt/scene_gt.json, scene_camera.json      (BOP, image 0,
+                                                          obj_id 1, 2, 3)
+
+    `edge=True` adds probability_maps/edge.png (synthetic_edge_map of the
+    union of the silhouettes): the instance path. `scale` shrinks the image
+    and the camera together (0.25 gives 160x120). Returns (scene directory,
+    MatchConfig of the preset at that image size, {object: gt 4x4
+    model->camera pose})."""
+    import json
+
+    cfg = get_preset(preset).match
+    cam = CameraIntrinsics(*(v * scale for v in cfg.camera.as_tuple()))
+    cfg = dataclasses.replace(cfg, camera=cam,
+                              image_width=int(round(cfg.image_width * scale)),
+                              image_height=int(round(cfg.image_height * scale)))
+    h, w = cfg.image_height, cfg.image_width
+    rays = _camera_rays(cam.as_tuple(), w, h)
+    depth_f = np.full((h, w), 0.9025)
+    seen = np.full((h, w), -1)                        # object index, -1 = plane
+    gts = {}
+    for i, (name, axes, th, t) in enumerate(MULTI_SHELLS):
+        gts[name] = _pose(th, t)
+        s, hit = _ray_depth(rays, axes, gts[name].astype(np.float64))
+        nearer = hit & (s < depth_f)
+        depth_f = np.where(nearer, s, depth_f)
+        seen = np.where(nearer, i, seen)
+    rng = np.random.default_rng(seed)
+    z = depth_f + rng.normal(0.0, 0.0005, depth_f.shape)
+    depth = np.clip(np.round(z / cfg.depth_scale), 1, 65535).astype(np.uint16)
+    colours = np.array([[110, 110, 110], [200, 60, 40], [40, 160, 60], [50, 70, 200]])
+    rgb = colours[seen + 1]
+    rgb = np.clip(rgb + rng.integers(-8, 9, rgb.shape), 0, 255).astype(np.uint8)
+    on, off = round(0.9 / cfg.probability_scale), round(0.12 / cfg.probability_scale)
+
+    scene_dir = os.path.join(root, "scene")
+    maps = os.path.join(scene_dir, "probability_maps")
+    gt_dir = os.path.join(root, "gt")
+    for d in (maps, gt_dir):
+        os.makedirs(d, exist_ok=True)
+    image.write_rgb(os.path.join(scene_dir, "rgb.png"), rgb)
+    image.write_u16(os.path.join(scene_dir, "depth.png"), depth)
+    src_rng = np.random.default_rng(seed)
+    bop = []
+    for i, (name, axes, _th, _t) in enumerate(MULTI_SHELLS):
+        image.write_u16(os.path.join(maps, f"{name}.png"),
+                        np.where(seen == i, on, off).astype(np.uint16))
+        model_dir = os.path.join(root, "models", name)
+        os.makedirs(model_dir, exist_ok=True)
+        pos, nrm = _shell(src_rng, num_source_points, axes)
+        col = np.tile(colours[i + 1].astype(np.float32), (num_source_points, 1))
+        ply.write_ply(os.path.join(model_dir, "textured_vertices.ply"), pos, nrm, col)
+        g = gts[name]
+        with open(os.path.join(gt_dir, f"best_pose_candidate_{name}.txt"), "w") as f:
+            f.write(" ".join(f"{g[r, c]:.9g}" for r in range(3) for c in range(4)) + "\n")
+        bop.append({"cam_R_m2c": [float(v) for v in g[:3, :3].reshape(-1)],
+                    "cam_t_m2c": [float(v) * 1000.0 for v in g[:3, 3]],
+                    "obj_id": i + 1})
+    fx, cx, fy, cy = cam.as_tuple()
+    with open(os.path.join(gt_dir, "scene_gt.json"), "w") as f:
+        json.dump({"0": bop}, f)
+    with open(os.path.join(gt_dir, "scene_camera.json"), "w") as f:
+        json.dump({"0": {"cam_K": [fx, 0.0, cx, 0.0, fy, cy, 0.0, 0.0, 1.0],
+                         "depth_scale": cfg.depth_scale * 1000.0}}, f)
+    if edge:
+        union = np.where(seen >= 0, on, off)
+        image.write_u8(os.path.join(maps, "edge.png"),
+                       synthetic_edge_map(union, cfg.probability_scale))
+    return scene_dir, cfg, gts

@@ -1,6 +1,6 @@
 """Profile the PyTorch port's main path on one GPU.
 
-    python3 scripts/torch_profile_main.py [--path class|instance|sweep]
+    python3 scripts/torch_profile_main.py [--path class|instance|sweep|multi]
         [--bases 100] [--out DIR] [--trace]
 
 --path class (the default) runs the class-path estimator at the
@@ -8,7 +8,11 @@ chip_smoke.py size (480 model points, 16,384 scene points, 20,480 pairs per
 bin); --path instance runs the instance path on the 640x480 synthetic scene
 with an edge map, ingested from files written under build/ (ycb preset,
 --bases bases); --path sweep runs one class-path sweep chunk of --bases
-bases (run_sweep) on the same scene without the edge map. Each runs once to
+bases (run_sweep) on the same scene without the edge map; --path multi runs
+multi.match_all_objects for the three objects of the 640x480 three-object
+scene (synthetic.write_synthetic_multi_scene, class path, ycb preset,
+--bases bases, packs standardized as stocs-multi loads them) and first
+times its host-side align_models alone. Each runs once to
 warm up, then once under torch.profiler, on a fresh estimator (the instance
 path leaves its decayed prior on the estimator). Prints the per-phase wall
 times, the number of device kernels, the device-busy share of the profiled
@@ -47,7 +51,8 @@ def _busy_share(events, t_lo, t_hi):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--path", choices=("class", "instance", "sweep"), default="class")
+    ap.add_argument("--path", choices=("class", "instance", "sweep", "multi"),
+                    default="class")
     ap.add_argument("--bases", type=int, default=100)
     ap.add_argument("--out", default="chiprun_out/profile")
     ap.add_argument("--trace", action="store_true")
@@ -69,10 +74,17 @@ def main():
         model, scene, cfg = synthetic_setup(num_model=480, num_scene=16384,
                                             num_bases=args.bases, max_pairs=20480,
                                             max_congruent=200, seed=3, device=dev)
+    elif args.path == "multi":
+        models, scene, probs, cfg = _multi_from_files(dev, args.bases)
     else:
         model, scene, cfg = _scene_from_files(dev, args.path == "instance", args.bases)
 
     def once():
+        if args.path == "multi":
+            from model_matching_tpu_torch.multi import match_all_objects
+
+            best, _poses, nhyp = match_all_objects(models, scene, probs, cfg)
+            return {"best_lcp": best.tolist(), "hypotheses": nhyp.tolist()}
         est = StocsEstimator(model, scene, cfg)
         if args.path == "sweep":
             stats = est.run_sweep(args.bases, chunk=args.bases, verbose=False)[4]
@@ -89,7 +101,8 @@ def main():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     print(f"{args.path} path, {args.bases} bases: profiled run {wall * 1e3:.3f} ms; "
-          + ("stats " if args.path == "sweep" else "timings_ms ") + json.dumps(report))
+          + {"sweep": "stats ", "multi": "result "}.get(args.path, "timings_ms ")
+          + json.dumps(report))
     kernels = [(e.time_range.start, e.time_range.end) for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if kernels:
@@ -108,6 +121,49 @@ def main():
         prof.export_chrome_trace(os.path.join(args.out, f"trace_{args.path}.json"))
     with open(os.path.join(args.out, f"ops_{args.path}.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by="cuda_time_total", row_limit=200))
+
+
+def _multi_from_files(dev, bases):
+    """The 640x480 three-object scene, its three preprocessed models loaded
+    as stocs-multi loads them, and the wall time of align_models alone
+    (warm, median of 3, printed)."""
+    import dataclasses
+
+    import torch
+
+    from model_matching_tpu_torch import cli
+    from model_matching_tpu_torch.model import load_model_pack
+    from model_matching_tpu_torch.multi import align_models
+    from model_matching_tpu_torch.scene import load_scene_multi
+    from model_matching_tpu_torch.synthetic import MULTI_SHELLS, write_synthetic_multi_scene
+
+    root = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "build", "profile_multi")
+    scene_dir, cfg, _gts = write_synthetic_multi_scene(root)
+    objs = [name for name, *_ in MULTI_SHELLS]
+    models = []
+    for obj in objs:
+        if cli.main(["model-preprocess", obj, "--repo-path", root]) != 0:
+            raise RuntimeError("model-preprocess failed")
+        mdir = os.path.join(root, "models", obj)
+        models.append(load_model_pack(os.path.join(mdir, "model_search.ply"),
+                                      os.path.join(mdir, "ppf_table.npz"),
+                                      cfg.max_model_points, standardize=True, device=dev))
+    maps = os.path.join(scene_dir, "probability_maps")
+    scene, probs = load_scene_multi(os.path.join(scene_dir, "rgb.png"),
+                                    os.path.join(scene_dir, "depth.png"),
+                                    [os.path.join(maps, f"{o}.png") for o in objs],
+                                    None, cfg, device=dev)
+    walls = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        align_models(models)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    print(f"align_models of {len(objs)} standardized packs, warm: median "
+          f"{sorted(walls[1:])[1] * 1e3:.3f} ms over 3")
+    return models, scene, probs, dataclasses.replace(cfg, number_of_bases=bases)
 
 
 def _scene_from_files(dev, edge, bases):

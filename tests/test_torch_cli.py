@@ -6,8 +6,8 @@ ground-truth pose over a plane, and a dense source textured_vertices.ply).
 Required: the port's pose file is a rigid 3x4 within 1e-3 of the JAX
 package's, its debug PLYs exist, and it lands on the ground truth; the
 port's estimator, fed the JAX package's ingested packs (convert.py), picks
-the JAX package's best index; unported flags and a missing card exit
-nonzero with a message.
+the JAX package's best index; bad calls of the six commands and a missing
+card exit nonzero with a message.
 
 The instance path and the sweep flags run on a smaller scene (160x120 with
 probability_maps/edge.png, the ycb preset at a 1 cm voxel, a 4,096-point
@@ -176,19 +176,33 @@ def test_estimator_on_jax_packs_picks_jax_best_index(runs):
 
 
 def test_unported_flags_and_commands_exit_nonzero(runs, capsys):
-    """--profile and the four other commands are still to port; the sweep,
-    cluster and heatmap flags are live (the tests below)."""
+    """Every command is ported: each of the six dispatches and answers a bad
+    call with its own error and a nonzero exit (--profile is accepted by
+    stocs-single, on a missing object here); an unknown command exits 2
+    listing the six; --sweep-stop-after without a checkpoint is refused."""
     root, scene_dir, _cfg, _gt, _out, _best = runs
-    base = ["stocs-single", scene_dir, OBJ, "--repo-path", root, "--device", "cpu",
-            "--output-root", os.path.join(root, "out_flags")]
-    for flag in (["--profile", "p"], ["--profile", "p", "--sweep", "8"]):
-        assert tcli.main(base + flag) == 2, flag
-        assert "ROADMAP.md" in capsys.readouterr().out
-    assert tcli.main(base + ["--sweep-stop-after", "1"]) == 1
+    out_root = os.path.join(root, "out_flags")
+    base = ["--repo-path", root, "--device", "cpu", "--output-root", out_root]
+    for argv, rc, said in (
+            (["model-preprocess", "no_such_object"], 1, "not found"),
+            (["stocs-single", scene_dir, "no_such_object", "--profile", "p"], 1,
+             "model-preprocess"),
+            (["stocs-batch", scene_dir, "no_such_object"], 1, "model-preprocess"),
+            (["stocs-multi", scene_dir, f"{OBJ},no_such_object"], 1,
+             "missing scene inputs"),
+            (["eval", "est.txt", "gt.txt", "--model", "no_such.ply", "--device", "cpu"],
+             1, "model no_such.ply not found")):
+        assert tcli.main(argv + (base if argv[0] != "eval" else [])) == rc, argv
+        assert said in capsys.readouterr().out, argv
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr("sys.stdin", io.StringIO("one two three\nquit\n"))
+        assert tcli.main(["serve", *base]) == 0
+    assert capsys.readouterr().out.splitlines()[:2] == [
+        "READY", "ERR usage: <scene_path> <object>"]
+    assert tcli.main(["no-such-command"]) == 2
+    assert "stocs-batch, stocs-multi, serve or eval" in capsys.readouterr().out
+    assert tcli.main(["stocs-single", scene_dir, OBJ, *base, "--sweep-stop-after", "1"]) == 1
     assert "--sweep-checkpoint" in capsys.readouterr().out
-    for cmd in ("stocs-batch", "stocs-multi", "serve", "eval"):
-        assert tcli.main([cmd]) == 2
-        assert "not ported" in capsys.readouterr().out
 
 
 SMALL = dict(voxel_size=0.01, max_scene_points=4096, max_pairs_per_bin=2048,
