@@ -152,6 +152,16 @@ Phases, in order; any failure exits nonzero and prints no result:
              model-preprocess timed with the host C++ helpers and with
              MM_NO_NATIVE=1 (the same ppf_table.npz).
 
+13. fmath  — runs right after phase 2: ops/fmath.py's float32 atan2, atan,
+             acos, asin, sin, cos, log and log2 on the card against the CPU
+             over 1,000,003 seeded inputs each (the call sites' domains)
+             plus the edge cases (signed zeros, +-1 and neighbours, tiny,
+             denormals, infinities, NaN, large arguments), atan2 also over
+             every pair of edge values, and fp.xla_sum0 (the scene
+             centroid's sum): equal bits required. Each function's call
+             time and operator count (a kernel each) are printed beside
+             torch's own call.
+
 The line before the last is a JSON object describing the kernels (their
 `launches` are those of phase 7's run; `launches_instance`,
 `launches_sweep`, `launches_multi`, `launches_multi_edge`,
@@ -313,6 +323,10 @@ def main() -> int:
           f"(nvcc {_build.build_seconds})")
     print("\n".join(l for l in _build.build_log.splitlines()
                     if "Used" in l or "spill" in l or "Compiling entry" in l))
+
+    # ---- 13. the port's transcendentals: the card against the CPU
+    _phase("fmath")
+    _fmath_phase(torch, dev)
 
     # ---- 3. kernel against plain, on the card
     _phase("kernel")
@@ -635,6 +649,102 @@ class _record_gates:
 
     def stop(self):
         self._mod.dense_gate = self._real
+
+
+_VIEW_OPS = frozenset(("view", "_unsafe_view", "expand", "select", "slice",
+                       "unsqueeze", "squeeze", "reshape", "as_strided", "t",
+                       "transpose", "permute", "alias", "detach", "unbind",
+                       "lift_fresh", "scalar_tensor"))
+
+
+def _launches(torch, fn):
+    """Torch operators that one call of `fn` dispatches, views and
+    wrapped Python scalars aside: one device kernel each on the card."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket.__name__ not in _VIEW_OPS:
+                Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def _fmath_phase(torch, dev):
+    """ops/fmath.py on the card against the CPU, bit for bit, over seeded
+    inputs from the call sites' domains and the edge cases."""
+    import numpy as np
+
+    from model_matching_tpu_torch.ops import fmath
+    from model_matching_tpu_torch.ops.fp import xla_sum0
+
+    rng = np.random.default_rng(7)
+    n = 1_000_003
+    tiny = np.finfo(np.float32).tiny
+    one = np.float32(1.0)
+    base = np.array([
+        0.0, 1.0, np.nextafter(one, np.float32(0)), np.nextafter(one, np.float32(2)),
+        tiny, 1e-45, 1e-40, 5e-39, np.inf, np.nan, 0.5, 2.0, 2.4375, 0.4375,
+        2.0 ** -29, 2.0 ** 25, 1e30, 3.4e38, np.pi, np.pi / 2, 119.9, 120.0,
+        1e5, 1e10], np.float32)
+    edges = np.concatenate([base, -base])
+    unit = rng.uniform(-1, 1, n)
+    angles = np.concatenate([rng.uniform(0, 2 * np.pi, n // 2),
+                             rng.normal(0, 0.05, n // 4),
+                             rng.uniform(-1e4, 1e4, n - n // 2 - n // 4)])
+    logs = np.concatenate([np.maximum(rng.random(n // 2), tiny),
+                           -np.log(np.maximum(rng.random(n // 4), tiny)),
+                           10.0 ** rng.uniform(-30, 0, n - n // 2 - n // 4)])
+    wide = rng.normal(0, 1, n) * 10.0 ** rng.uniform(-20, 20, n)
+    cases = [("acos", fmath.acos, torch.acos, unit), ("asin", fmath.asin, torch.asin, unit),
+             ("sin", fmath.sin, torch.sin, angles), ("cos", fmath.cos, torch.cos, angles),
+             ("log", fmath.log, torch.log, logs), ("log2", fmath.log2, torch.log2, logs),
+             ("atan", fmath.atan, torch.atan, wide)]
+
+    def differ(a, b):
+        a, b = a.cpu(), b.cpu()
+        same = (a.view(torch.int32) == b.view(torch.int32)) | (a.isnan() & b.isnan())
+        return int((~same).sum())
+
+    total = 0
+    for name, f, torch_f, dom in cases:
+        x = torch.from_numpy(np.concatenate([dom, edges]).astype(np.float32))
+        xg = x.to(dev)
+        bad = differ(f(xg), f(x))
+        total += x.numel()
+        print(f"fmath.{name}: {x.numel()} inputs, {bad} differ card against CPU; "
+              f"call {_time_ms(torch, lambda: f(xg), runs=3):.4f} ms, "
+              f"{_launches(torch, lambda: f(xg))} ops (torch.{torch_f.__name__} "
+              f"{_time_ms(torch, lambda: torch_f(xg), runs=3):.4f} ms, "
+              f"{_launches(torch, lambda: torch_f(xg))} ops)")
+        if bad:
+            raise AssertionError(f"fmath.{name} gives other bits on the card")
+    ey, ex = (torch.from_numpy(v.ravel()) for v in np.meshgrid(edges, edges))
+    y = torch.cat([torch.from_numpy(np.concatenate([
+        rng.random(n // 2), rng.normal(0, 1, n - n // 2)]).astype(np.float32)), ey])
+    x = torch.cat([torch.from_numpy(np.concatenate([
+        rng.uniform(-1, 1, n // 2), rng.normal(0, 1, n - n // 2)]).astype(np.float32)), ex])
+    yg, xg = y.to(dev), x.to(dev)
+    bad = differ(fmath.atan2(yg, xg), fmath.atan2(y, x))
+    total += y.numel()
+    print(f"fmath.atan2: {y.numel()} pairs, {bad} differ card against CPU; call "
+          f"{_time_ms(torch, lambda: fmath.atan2(yg, xg), runs=3):.4f} ms, "
+          f"{_launches(torch, lambda: fmath.atan2(yg, xg))} ops (torch.atan2 "
+          f"{_time_ms(torch, lambda: torch.atan2(yg, xg), runs=3):.4f} ms, "
+          f"{_launches(torch, lambda: torch.atan2(yg, xg))} ops)")
+    if bad:
+        raise AssertionError("fmath.atan2 gives other bits on the card")
+    for rows in (16384, 19200, 307200):
+        p = torch.from_numpy(rng.normal(0.5, 0.2, (rows, 3)).astype(np.float32))
+        if not torch.equal(xla_sum0(p.to(dev)).cpu(), xla_sum0(p)):
+            raise AssertionError(f"xla_sum0 over {rows} rows gives other bits on the card")
+    print(f"fmath: {total} inputs in all, card == CPU bit for bit; xla_sum0 "
+          f"equal over 16384, 19200 and 307200 rows")
 
 
 def _gate_bound(torch, dense_gate_reference, args, kw, ms):

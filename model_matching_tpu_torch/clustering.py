@@ -20,6 +20,7 @@ import math
 
 import torch
 
+from .ops import fmath
 from .ops.fp import dot3, sqrt_rn
 
 _RAD2DEG = 180.0 / math.pi
@@ -67,16 +68,18 @@ def quaternion_to_euler(q):
     w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
     sinr = 2.0 * (w * x + y * z)
     cosr = 1.0 - 2.0 * (x * x + y * y)
-    roll = torch.atan2(sinr, cosr)
     sinp = 2.0 * (w * y - z * x)
+    siny = 2.0 * (w * z + x * y)
+    cosy = 1.0 - 2.0 * (y * y + z * z)
+    # roll, asin(sinp) / 2 and yaw through one atan2
+    py, px = fmath.asin_atan2_args(torch.clamp(sinp, -1.0, 1.0))
+    roll, half_pitch, yaw = fmath.atan2(torch.stack([sinr, py, siny]),
+                                        torch.stack([cosr, px, cosy]))
     pitch = torch.where(
         torch.abs(sinp) >= 1.0,
         torch.sign(sinp) * (math.pi / 2.0),
-        torch.asin(torch.clamp(sinp, -1.0, 1.0)),
+        half_pitch + half_pitch,
     )
-    siny = 2.0 * (w * z + x * y)
-    cosy = 1.0 - 2.0 * (y * y + z * z)
-    yaw = torch.atan2(siny, cosy)
     return torch.stack([roll, pitch, yaw], dim=-1)
 
 

@@ -33,8 +33,9 @@ import torch
 
 from . import rng
 from .config import MatchConfig
+from .ops import fmath
 from .ops.dense_gate import dense_gate
-from .ops.fp import div_const, dot3, fma, sqrt_rn
+from .ops.fp import div_const, dot3, f32, fma, sqrt_rn
 from .ops.ppf import ppf_bins
 from .ppf_table import (
     PPFTable,
@@ -92,33 +93,42 @@ def _unit(v):
     return v / torch.clamp(sqrt_rn(dot3(v, v)), min=1e-30)[..., None]
 
 
-def _cone_samples(dir_q, cos_alpha):
-    """Cells of the reference's cone rasterization around directions
-    dir_q [n, L, 3] at angle acos(cos_alpha [n]): (cells [n, L, S] int32,
-    live [n, S] bool, nb [n] sample count)."""
-    dq = _unit(dir_q)
-    ang = torch.arccos(torch.clamp(cos_alpha, -1.0, 1.0))
+def _cone_trig(cos_alpha):
+    """The trigonometry of the reference's cone rasterization for bases at
+    angle acos(cos_alpha [B]), taken once for all tiers: (local [B, S, 3]
+    sample directions about +z, live [B, S] bool, nb [B] sample count)."""
+    ang = fmath.acos(torch.clamp(cos_alpha, -1.0, 1.0))
     # the reference's quirks: perimeter from atan(angle), zero samples at 0
-    perimeter = 2.0 * math.pi * torch.arctan(ang)
+    perimeter = 2.0 * math.pi * fmath.atan(ang)
     nb = 2.0 * torch.ceil(perimeter * _NG / 2.0)
     step = 2.0 * math.pi / torch.clamp(nb, min=1.0)
-    a = torch.arange(_CONE_MAX_SAMPLES, dtype=torch.float32, device=dir_q.device)
-    theta = a[None, :] * step[:, None]                     # [n, S]
-    sin_a = torch.sin(ang)[:, None]
+    a = torch.arange(_CONE_MAX_SAMPLES, dtype=torch.float32, device=cos_alpha.device)
+    theta = a[None, :] * step[:, None]                     # [B, S]
+    # one sin/cos pass over the cone angles and the sample angles
+    sin, cos = fmath.sincos(torch.cat([ang[:, None], theta], dim=1))
+    sin_a = sin[:, :1]
     local = torch.stack([
-        sin_a * torch.cos(theta),
-        sin_a * torch.sin(theta),
+        sin_a * cos[:, 1:],
+        sin_a * sin[:, 1:],
         cos_alpha[:, None].expand_as(theta),
-    ], dim=-1)                                             # [n, S, 3]
-    d = _unit(torch.einsum("nlij,nsj->nlsi", _rot_from_z_to(dq), local))
-    return _normal_cell_id(d), (a[None, :] < nb[:, None]), nb
+    ], dim=-1)                                             # [B, S, 3]
+    return local, (a[None, :] < nb[:, None]), nb
 
 
-def _colored_mask(dir_q, cos_alpha):
+def _cone_samples(dir_q, cone):
+    """Cells of the cone rasterization around directions dir_q [n, L, 3]
+    for n bases' _cone_trig rows: (cells [n, L, S] int32, live [n, S] bool,
+    nb [n] sample count)."""
+    local, live, nb = cone
+    d = _unit(torch.einsum("nlij,nsj->nlsi", _rot_from_z_to(_unit(dir_q)), local))
+    return _normal_cell_id(d), live, nb
+
+
+def _colored_mask(dir_q, cone):
     """[n, _CONE_OH_W, L] bool: angular cell c is colored by the cone
     rasterization around Q lane l (dead samples park at cell 350, which no
     P cell reaches)."""
-    cells, live, nb = _cone_samples(dir_q, cos_alpha)
+    cells, live, nb = _cone_samples(dir_q, cone)
     live = live & (nb > 0)[:, None]
     cells = torch.where(live[:, None, :], torch.clamp(cells, 0, 349), 350)
     n, l_n, _s = cells.shape
@@ -133,12 +143,12 @@ def _cell_index(dir_p):
     return torch.clamp(_normal_cell_id(_unit(dir_p)), 0, 349)
 
 
-def _cone_accept(dir_p, dir_q, cos_alpha):
+def _cone_accept(dir_p, dir_q, cone):
     """Literal cone-rasterization membership of the reference: the angular
     cell of dir_p [n, K, 3] is one of the cells colored around dir_q
-    [n, K, 3] at angle acos(cos_alpha [n])."""
+    [n, K, 3] by the n bases' _cone_trig rows."""
     cell_p = _normal_cell_id(_unit(dir_p))
-    cells, live, nb = _cone_samples(dir_q, cos_alpha)
+    cells, live, nb = _cone_samples(dir_q, cone)
     hit = ((cells == cell_p[..., None]) & live[:, None, :]).any(dim=-1)
     return hit & (nb > 0)[:, None]
 
@@ -248,7 +258,13 @@ def extract_congruent_sets(
     dev = scene_pos.device
     center, ratio = _unit_cube_params(model_pos)
     # power-of-two cell of the reference's IndexedNormalSet grid
-    eg_size = torch.exp2(torch.trunc(-torch.log2(cfg.distance_threshold / ratio)))
+    # (eps / ratio as a correctly rounded float32 quotient, log2 as the JAX
+    # package's compiled log times 1 / ln 2, and the power of two built
+    # from its exponent bits: exact on every device)
+    eps_n = (torch.full_like(ratio, f32(cfg.distance_threshold), dtype=torch.float64)
+             / ratio.double()).float()
+    depth = torch.clamp(torch.trunc(-fmath.log2(eps_n)), -126, 127).to(torch.int32)
+    eg_size = ((depth + 127) << 23).view(torch.float32)
 
     p_cap = cfg.max_pairs_per_bin
     k_cap = cfg.maximum_congruent_sets
@@ -302,6 +318,7 @@ def extract_congruent_sets(
         table=table, model_pos=model_pos, pair_ep=pair_ep, cfg=cfg,
         d2_implied=d2_implied, center=center, ratio=ratio, eg_size=eg_size,
     )
+    cone = _cone_trig(alpha)
     for ti, (cap, q_block) in enumerate(tiers + [top]):
         members = np.flatnonzero(tier_of == ti)
         if members.size == 0:
@@ -311,7 +328,7 @@ def extract_congruent_sets(
             p_, v_, t_ = _match_tier(
                 ctx, cap, q_block, salts[sel], alpha[sel], invariant1[sel],
                 invariant2[sel], base_valid[sel], off1[sel], cnt1[sel],
-                off2[sel], cnt2[sel],
+                off2[sel], cnt2[sel], tuple(t[sel] for t in cone),
             )
             pairs[sel], quad_valid[sel], totals[sel] = p_, v_, t_
     return CongruentSets(pairs, quad_valid, totals,
@@ -349,7 +366,7 @@ def _member_chunks(members, cap, q_block, pair_ep):
 
 
 def _match_tier(ctx, cap, q_block, salt, alpha, inv1, inv2, bvalid,
-                off1, cnt1, off2, cnt2):
+                off1, cnt1, off2, cnt2, cone):
     """Gate + random-subsample selection of n bases at one tier: gather up
     to `cap` pairs per side (block-granular in the dense tiers when the
     endpoint rows exist), gate, reduce to stripe maxima, select."""
@@ -528,7 +545,7 @@ def _match_tier(ctx, cap, q_block, salt, alpha, inv1, inv2, bvalid,
                   - 2.0 * torch.bmm(e1_world, e2_world.transpose(1, 2)))
             match &= d2 <= dist_thresh
         if exact_in_gate:
-            colored = _colored_mask(n2, alpha)                  # [n, 352, ql]
+            colored = _colored_mask(n2, cone)                   # [n, 352, ql]
             nidx = torch.arange(n, device=dev)[:, None]
             match &= colored[nidx, _cell_index(n1).long()]
         elif cfg.congruent_cos_tolerance >= 0:
@@ -571,7 +588,7 @@ def _match_tier(ctx, cap, q_block, salt, alpha, inv1, inv2, bvalid,
             rows, 1, idx[..., None].expand(idx.shape + (6,)))
         rp_w, rq_w = take_rows(p_rows, pi), take_rows(q_rows, qi)
         exact_ok = _cone_accept(rp_w[..., 3:6] - rp_w[..., 0:3],
-                                rq_w[..., 3:6] - rq_w[..., 0:3], alpha)
+                                rq_w[..., 3:6] - rq_w[..., 0:3], cone)
         top, pick = _topk_segmented(torch.where(gate_ok & exact_ok, top, 0), k_cap)
         pi = torch.gather(pi, 1, pick)
         qi = torch.gather(qi, 1, pick)

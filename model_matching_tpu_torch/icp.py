@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from .ops import fmath
 from .ops.gridhash import NeighborGrid, query_restricted_nn
 
 
@@ -38,7 +39,8 @@ def _solve_point_to_plane(src, tgt, nrm, w):
         torch.stack([-k[1], k[0], zero]),
     ])
     eye3 = torch.eye(3, dtype=src.dtype, device=src.device)
-    rot = eye3 + torch.sin(theta) * kx + (1 - torch.cos(theta)) * (kx @ kx)
+    sin, cos = fmath.sincos(theta)
+    rot = eye3 + sin * kx + (1 - cos) * (kx @ kx)
     out = torch.eye(4, dtype=src.dtype, device=src.device)
     out[:3, :3] = rot
     out[:3, 3] = t

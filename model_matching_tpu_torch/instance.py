@@ -128,7 +128,8 @@ def sample_instance_bases_stepwise(
 
         probs = torch.where(valid, class_prob, 0.0)
         probs = flood.prune_edge_points(probs, edge_prob)[None, :]
-        idx1, ok1 = _draw_rows(g[0], probs)
+        log_w = sampling.log_weights(probs)      # once for the four draws
+        idx1, ok1 = _draw_rows(g[0], probs, log_w)
 
         # round-1 PPF mask and the largest feasible pixel distance
         exists1 = sampling._pairwise_exists(
@@ -167,19 +168,19 @@ def sample_instance_bases_stepwise(
         prev_in = seg_mask[prow, pcol]
         probs = torch.where(prev_in[None, :], probs, 0.0)
 
-        idx2, ok2 = _draw_rows(g[1], probs)
+        idx2, ok2 = _draw_rows(g[1], probs, log_w)
         keep2 = sampling.round2_keep_mask(
             table, pos, normal, idx1, idx2, tr_disc, rot_disc,
             internal_angle_threshold, exists_bits)
         probs = torch.where(keep2, probs, 0.0)
 
-        idx3, ok3 = _draw_rows(g[2], probs)
+        idx3, ok3 = _draw_rows(g[2], probs, log_w)
         keep3 = sampling.round3_keep_mask(
             table, pos, normal, idx1, idx2, idx3, tr_disc, rot_disc,
             plane_threshold, min_distance_base, exists_bits)
         probs = torch.where(keep3, probs, 0.0)
 
-        idx4, ok4 = _draw_rows(g[3], probs)
+        idx4, ok4 = _draw_rows(g[3], probs, log_w)
 
         raws.append(torch.cat([idx1, idx2, idx3, idx4]))
         oks.append((ok1 & ok2 & ok3 & ok4)[0])
@@ -278,9 +279,11 @@ def sample_instance_bases_blocked(
         g = rng.gumbel_rows(keys[blk].reshape(-1, 2), n, dev).reshape(k_block, 4, n)
 
         probs0 = torch.where(valid, class_prob, 0.0)
-        probs0 = flood.prune_edge_points(probs0, edge_prob).expand(k_block, n)
+        probs0 = flood.prune_edge_points(probs0, edge_prob)
+        log_w = sampling.log_weights(probs0)     # once for the block's draws
+        probs0 = probs0.expand(k_block, n)
 
-        idx1, ok1 = _draw_rows(g[:, 0], probs0)
+        idx1, ok1 = _draw_rows(g[:, 0], probs0, log_w)
         exists1 = sampling._pairwise_exists(
             table, pos, normal, idx1, tr_disc, rot_disc, exists_bits)
         probs = torch.where(exists1 & (arange_n[None, :] != idx1[:, None]),
@@ -296,15 +299,15 @@ def sample_instance_bases_blocked(
         in_seg = masks[:, prow, pcol]                           # [K, N]
         probs = torch.where(in_seg, probs, 0.0)
 
-        idx2, ok2 = _draw_rows(g[:, 1], probs)
+        idx2, ok2 = _draw_rows(g[:, 1], probs, log_w)
         probs = torch.where(sampling.round2_keep_mask(
             table, pos, normal, idx1, idx2, tr_disc, rot_disc,
             internal_angle_threshold, exists_bits), probs, 0.0)
-        idx3, ok3 = _draw_rows(g[:, 2], probs)
+        idx3, ok3 = _draw_rows(g[:, 2], probs, log_w)
         probs = torch.where(sampling.round3_keep_mask(
             table, pos, normal, idx1, idx2, idx3, tr_disc, rot_disc,
             plane_threshold, min_distance_base, exists_bits), probs, 0.0)
-        idx4, ok4 = _draw_rows(g[:, 3], probs)
+        idx4, ok4 = _draw_rows(g[:, 3], probs, log_w)
 
         # block-boundary decay: a base's segment decays the prior once,
         # when the sequential chain would (at the start of the following

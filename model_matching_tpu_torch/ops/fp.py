@@ -58,9 +58,39 @@ def mul_recip(x, c: float):
     return x * f32(1.0 / f32(c))
 
 
+def div(a, b):
+    """float32 a / b of two tensors, correctly rounded on every device (the
+    float64 quotient rounded once; 53 >= 2 * 24 + 2)."""
+    return (a.double() / b.double()).float()
+
+
 def sqrt_rn(x):
     """float32 square root, correctly rounded on every device: torch's
     vectorized CPU sqrt can miss by one ULP next to a rounding midpoint
     where CUDA's is exact; a float64 root rounded once to float32 is the
     correctly rounded float32 root (53 >= 2 * 24 + 2 bits) on both."""
     return torch.sqrt(x.double()).float()
+
+
+def xla_sum0(x, window: int = 32):
+    """float32 sum over axis 0 in the order of the JAX package's compiled
+    reduction: XLA's CPU tree-reduction rewrite sums windows of 32 rows
+    (the axis zero-padded to a multiple of 32, half of the padding in
+    front), each window in order from 0, until fewer than 32 rows remain,
+    and then those in order. Each step is a float32 add, correctly rounded
+    on every device."""
+    while x.shape[0] >= window:
+        n = x.shape[0]
+        pad = -n % window
+        if pad:
+            z = x.new_zeros((pad,) + x.shape[1:])
+            x = torch.cat([z[:pad // 2], x, z[pad // 2:]])
+        x = x.reshape((-1, window) + x.shape[1:])
+        acc = x[:, 0]
+        for j in range(1, window):
+            acc = acc + x[:, j]
+        x = acc
+    acc = torch.zeros_like(x[0])
+    for j in range(x.shape[0]):
+        acc = acc + x[j]
+    return acc

@@ -14,9 +14,10 @@ camera cancels all but a few bits of float32, so the normal depends on the
 exact rounding of its moments. `grid_pca_normals` therefore accumulates
 the moments in float32 in the JAX package's order (neighbour cell after
 neighbour cell, member after member) and forms the covariance with the
-same fused multiply-add; the eigen-solve then runs in float64 and rounds
-once. Every step is correctly rounded, so the card gives the CPU's bits,
-and the covariance is the JAX package's.
+same fused multiply-add; the float32 eigen-solve then repeats the JAX
+package's expression with its rounding (ops/fmath.py for acos and cos).
+Every step is correctly rounded, so the card gives the CPU's bits, and the
+normals are the JAX package's.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ import math
 import numpy as np
 import torch
 
-from .fp import div_const, dot3, f32, fma, mul_recip, sqrt_rn
+from . import fmath
+from .fp import div, div_const, dot3, f32, fma, mul_recip, sqrt_rn
 from .voxel import _longest_run, neighbor_blocks
 
 
@@ -92,33 +94,65 @@ def depth_normals(depth, fx, cx, fy, cy, window: int = 5,
     return n, ok
 
 
-def smallest_eigenvector_3x3(cov):
+def smallest_eigenvector_3x3(cov, fused: bool = True):
     """Unit eigenvector of the smallest eigenvalue of symmetric [..., 3, 3]
-    matrices (the analytic trigonometric eigenvalue and the largest cross
-    product of two rows of A - lambda I; +z for isotropic matrices),
-    evaluated in float64 and returned in the input's dtype."""
-    a = cov.to(torch.float64)
+    float32 matrices: the analytic trigonometric eigenvalue, then the
+    largest cross product of two rows of A - lambda I (+z for isotropic
+    matrices), in float32 with the JAX package's rounding. `fused` picks
+    its compiled scene program (divisions by constants as products with
+    the rounded reciprocal, the multiply-adds XLA contracts, p^3 as
+    max(p^2, 1e-30) * p); False its op-by-op model preprocessing (true
+    divisions, no contraction between jnp calls, p^3 = p * (p * p))."""
+    a = cov.to(torch.float32)
     eye = torch.eye(3, dtype=a.dtype, device=a.device)
-    q = (a[..., 0, 0] + a[..., 1, 1] + a[..., 2, 2]) / 3.0
+    tr = (a[..., 0, 0] + a[..., 1, 1]) + a[..., 2, 2]
+    div3 = (lambda x: mul_recip(x, 3.0)) if fused else (lambda x: div_const(x, 3.0))
+    q = div3(tr)
     b = a - q[..., None, None] * eye
-    p = torch.sqrt(torch.clamp((b * b).sum(dim=(-2, -1)) / 6.0, min=1e-30))
-    detb = (b[..., 0, 0] * (b[..., 1, 1] * b[..., 2, 2] - b[..., 1, 2] * b[..., 2, 1])
-            - b[..., 0, 1] * (b[..., 1, 0] * b[..., 2, 2] - b[..., 1, 2] * b[..., 2, 0])
-            + b[..., 0, 2] * (b[..., 1, 0] * b[..., 2, 1] - b[..., 1, 1] * b[..., 2, 0]))
-    r = torch.clamp(detb / (2.0 * p ** 3), -1.0, 1.0)
-    phi = torch.arccos(r) / 3.0
-    eig_small = q + 2.0 * p * torch.cos(phi + 2.0 * math.pi / 3.0)
-    m = a - eig_small[..., None, None] * eye
+    bf = b.flatten(-2)
+    if fused:
+        # the reduction's multiply-adds contracted, in row-major order
+        p2s = bf[..., 0] * bf[..., 0]
+        for k in range(1, 9):
+            p2s = fma(bf[..., k], bf[..., k], p2s)
+    else:
+        sq = bf * bf
+        p2s = sq[..., 0]
+        for k in range(1, 9):
+            p2s = p2s + sq[..., k]
+    pc = torch.clamp(mul_recip(p2s, 6.0) if fused else div_const(p2s, 6.0), min=1e-30)
+    p = sqrt_rn(pc)
+    b00, b01, b02 = b[..., 0, 0], b[..., 0, 1], b[..., 0, 2]
+    b10, b11, b12 = b[..., 1, 0], b[..., 1, 1], b[..., 1, 2]
+    b20, b21, b22 = b[..., 2, 0], b[..., 2, 1], b[..., 2, 2]
+    # jnp.linalg.det's six triple products, its first sum fusing the first
+    det = fma(b00 * b11, b22, (b01 * b12) * b20)
+    det = fma(b02 * b10, b21, det)
+    det = fma(-(b02 * b11), b20, det)
+    det = fma(-(b00 * b12), b21, det)
+    det = fma(-(b01 * b10), b22, det)
+    p3 = pc * p if fused else p * (p * p)
+    c = torch.clamp(div(det, p3 * 2.0), -1.0, 1.0)
+    ac = fmath.acos(c)
+    two_pi_3 = f32(2.0 * math.pi / 3.0)
+    if fused:
+        # phi + 2 pi / 3 and q + 2 p cos(.) each contract their first product
+        third = torch.full_like(ac, f32(1.0 / 3.0))
+        cs = fmath.cos(fma(ac, third, torch.full_like(ac, two_pi_3)))
+        eig = fma(tr, third, (p * 2.0) * cs)
+    else:
+        cs = fmath.cos(div3(ac) + two_pi_3)
+        eig = q + (p * 2.0) * cs
+    m = a - eig[..., None, None] * eye
     r0, r1, r2 = m[..., 0, :], m[..., 1, :], m[..., 2, :]
-    cands = torch.stack([torch.linalg.cross(r0, r1), torch.linalg.cross(r0, r2),
-                         torch.linalg.cross(r1, r2)], dim=-2)
-    norms = torch.sqrt((cands * cands).sum(-1))
+    cands = torch.stack([_cross_fused(r0, r1), _cross_fused(r0, r2),
+                         _cross_fused(r1, r2)], dim=-2)
+    norms = sqrt_rn(dot3(cands, cands))
     best = torch.argmax(norms, dim=-1)
     v = torch.gather(cands, -2, best[..., None, None].expand(best.shape + (1, 3)))[..., 0, :]
-    vn = torch.sqrt((v * v).sum(-1, keepdim=True))
+    vn = sqrt_rn(dot3(v, v))[..., None]
     fallback = torch.tensor([0.0, 0.0, 1.0], dtype=a.dtype, device=a.device).expand(v.shape)
-    out = torch.where(vn > 1e-12, v / torch.clamp(vn, min=1e-12), fallback)
-    return out.to(cov.dtype)
+    return torch.where(vn > 1e-12, div(v, torch.clamp(vn, min=1e-12)), fallback)
 
 
 def grid_pca_normals(pos, valid, radius: float, cell_cap: int = 64,
@@ -170,7 +204,7 @@ def grid_pca_normals(pos, valid, radius: float, cell_cap: int = 64,
         cov = fma(-mean[:, :, None], mean[:, None, :], e2)
     else:
         cov = e2 - mean[:, :, None] * mean[:, None, :]
-    nrm = smallest_eigenvector_3x3(cov)
+    nrm = smallest_eigenvector_3x3(cov, fused=fused)
     dot = dot3(nrm, pos)
     flip = dot > 0 if orient == "camera" else dot < 0
     nrm = torch.where(flip[:, None], -nrm, nrm)

@@ -19,6 +19,7 @@ import math
 import numpy as np
 import torch
 
+from . import fmath
 from .fp import sqrt_rn
 
 RAD2DEG = 180.0 / math.pi
@@ -51,16 +52,13 @@ def ppf_features(p1, n1, p2, n2):
     u = p1 - p2
     d = sqrt_rn(_dot3(u, u))
 
-    def angle_deg(a, b):
-        c = _cross(a, b)
-        sin = sqrt_rn(_dot3(c, c))
-        return torch.atan2(sin, _dot3(a, b)) * RAD2DEG
-
+    # the three angles (n1, u), (n2, u), (n1, n2) through one atan2
+    a = torch.stack([n1, n2, n1], dim=-2)
+    b = torch.stack([u, u, n2], dim=-2)
+    c = _cross(a, b)
+    deg = fmath.atan2(sqrt_rn(_dot3(c, c)), _dot3(a, b)) * RAD2DEG   # [..., 3]
     f1 = (d * 1000.0).to(torch.int32)
-    f2 = angle_deg(n1, u).to(torch.int32)
-    f3 = angle_deg(n2, u).to(torch.int32)
-    f4 = angle_deg(n1, n2).to(torch.int32)
-    return torch.stack([f1, f2, f3, f4], dim=-1)
+    return torch.cat([f1[..., None], deg.to(torch.int32)], dim=-1)
 
 
 def ppf_closest_bin(value, disc):

@@ -23,6 +23,8 @@ import math
 
 import torch
 
+from .ops import fmath
+
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _FLOAT32_TINY = torch.finfo(torch.float32).tiny
@@ -135,7 +137,14 @@ def gumbel(key, shape=(), device="cpu"):
     """float32 Gumbel noise, jax's "low" mode: -log(-log(u)), u uniform in
     [tiny, 1)."""
     u = uniform(key, shape, _FLOAT32_TINY, 1.0, device)
-    return -torch.log(-torch.log(u))
+    return -fmath.log(-fmath.log(u))
+
+
+def gumbel_keys(keys, shape, device="cpu"):
+    """[len(keys), *shape] float32: gumbel(k, shape) for each key k, the
+    logs taken over all of them at once."""
+    u = torch.stack([uniform(k, shape, _FLOAT32_TINY, 1.0, device) for k in keys])
+    return -fmath.log(-fmath.log(u))
 
 
 def gumbel_rows(keys: torch.Tensor, n: int, device="cpu"):
@@ -143,7 +152,7 @@ def gumbel_rows(keys: torch.Tensor, n: int, device="cpu"):
     (what jax.vmap of a [1, n] draw over a batch of keys gives)."""
     b1, b2 = _hash_iota_batched(keys, n, device)
     u = _uniform_from_bits(b1 ^ b2, _FLOAT32_TINY, 1.0, device)
-    return -torch.log(-torch.log(u))
+    return -fmath.log(-fmath.log(u))
 
 
 def categorical(key, logits: torch.Tensor) -> torch.Tensor:

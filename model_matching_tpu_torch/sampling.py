@@ -16,7 +16,7 @@ from typing import NamedTuple
 import torch
 
 from . import rng
-from .ops import invariants
+from .ops import fmath, invariants
 from .ops.fp import sqrt_rn
 from .ops.ppf import ppf_keys_fast
 from .ppf_table import PPFTable, ppf_exists
@@ -31,28 +31,28 @@ class SampledBases(NamedTuple):
     valid: torch.Tensor       # [B] bool
 
 
-def _row_logits(probs):
+def log_weights(w):
+    """log(max(w, 1e-30)), the logits of positive weights."""
+    return fmath.log(torch.clamp(w, min=1e-30))
+
+
+def _row_logits(probs, log_w):
     """([B, N] logits of the weights, [B] rows with mass): zero weights get
     -inf, and a row without mass (flagged invalid) all zeros, so that a
-    draw never sees an all -inf row."""
+    draw never sees an all -inf row. `log_w` is log_weights(w) of the
+    weights w that `probs` masks (each entry w or 0), taken once for the
+    four draws of a base: the JAX package takes the log per draw, of the
+    same values."""
     ok = probs.sum(dim=-1) > 0
-    logits = torch.where(
-        probs > 0, torch.log(torch.clamp(probs, min=1e-30)), -torch.inf
-    )
+    logits = torch.where(probs > 0, log_w, -torch.inf)
     return torch.where(ok[:, None], logits, 0.0), ok
 
 
-def _categorical_rows(key, probs):
-    """Per-row categorical draw over [B, N] weights under one key; rows
-    with zero mass are flagged invalid."""
-    logits, ok = _row_logits(probs)
-    return rng.categorical(key, logits).to(torch.int32), ok
-
-
-def _categorical_rows_with_noise(noise, probs):
-    """The same draw with the Gumbel noise given, [B, N] (a key per row:
-    rng.gumbel_rows)."""
-    logits, ok = _row_logits(probs)
+def _categorical_rows_with_noise(noise, probs, log_w):
+    """Per-row categorical draw over [B, N] weights with the Gumbel noise
+    given (rng.categorical's draw: argmax of noise + logits); rows with zero
+    mass are flagged invalid."""
+    logits, ok = _row_logits(probs, log_w)
     return torch.argmax(noise + logits, dim=-1).to(torch.int32), ok
 
 
@@ -120,7 +120,7 @@ def round2_keep_mask(table, pos, normal, idx1, idx2, tr, rot,
     v2 = v2 / torch.clamp(_norm(v2), min=1e-30)[..., None]
     cosang = (v1[:, None, 0] * v2[..., 0] + v1[:, None, 1] * v2[..., 1]
               + v1[:, None, 2] * v2[..., 2])
-    angle = torch.arccos(torch.clamp(cosang, -1.0, 1.0)) * _RAD2DEG
+    angle = fmath.acos(torch.clamp(cosang, -1.0, 1.0)) * _RAD2DEG
     angle = torch.minimum(angle, 180.0 - angle)
     exists = _pairwise_exists(table, pos, normal, idx2, tr, rot, exists_bits)
     return exists & (arange_n != idx2[:, None]) & ~(angle < internal_angle_threshold)
@@ -193,26 +193,31 @@ def sample_class_bases(
     masking, batched over B bases."""
     n = pos.shape[0]
     k1, k2, k3, k4 = rng.split(key, 4)
-    probs = torch.where(valid, prior, 0.0).expand(num_bases, n)
+    w = torch.where(valid, prior, 0.0)
+    log_w = log_weights(w)                 # once for the four rounds
+    probs = w.expand(num_bases, n)
     arange_n = torch.arange(n, dtype=torch.int32, device=pos.device)[None, :]
+    # the four rounds' noise (rng.categorical under k1..k4) in one pass
+    g = rng.gumbel_keys((k1, k2, k3, k4), probs.shape, pos.device)
+    draw = _categorical_rows_with_noise
 
-    idx1, ok1 = _categorical_rows(k1, probs)
+    idx1, ok1 = draw(g[0], probs, log_w)
     exists1 = _pairwise_exists(table, pos, normal, idx1, tr_disc, rot_disc,
                                exists_bits)
     probs = torch.where(exists1 & (arange_n != idx1[:, None]), probs, 0.0)
 
-    idx2, ok2 = _categorical_rows(k2, probs)
+    idx2, ok2 = draw(g[1], probs, log_w)
     keep2 = round2_keep_mask(table, pos, normal, idx1, idx2, tr_disc,
                              rot_disc, internal_angle_threshold, exists_bits)
     probs = torch.where(keep2, probs, 0.0)
 
-    idx3, ok3 = _categorical_rows(k3, probs)
+    idx3, ok3 = draw(g[2], probs, log_w)
     keep3 = round3_keep_mask(table, pos, normal, idx1, idx2, idx3, tr_disc,
                              rot_disc, plane_threshold, min_distance_base,
                              exists_bits)
     probs = torch.where(keep3, probs, 0.0)
 
-    idx4, ok4 = _categorical_rows(k4, probs)
+    idx4, ok4 = draw(g[3], probs, log_w)
 
     raw = torch.stack([idx1, idx2, idx3, idx4], dim=-1)      # [B, 4]
     perm, inv1, inv2, _dist = invariants.reorder_base(pos[raw.long()])

@@ -28,7 +28,7 @@ from .config import MatchConfig
 from .io import image as imio
 from .ops import geometry, normals as normals_ops, voxel
 from .ops.densefield import DenseField, build_dense_field
-from .ops.fp import f32, mul_recip
+from .ops.fp import f32, mul_recip, xla_sum0
 from .ops.gridhash import NeighborGrid, build_neighbor_grid
 from .utils.device import require
 
@@ -131,11 +131,11 @@ def _scene_pipeline(rgb, depth_u16, probs_u16, edge_u8, cfg: MatchConfig,
     class_prob = torch.where(valid[None, :], class_prob, 0.0)
     edge_prob = torch.where(valid, edge_prob, 0.0)
 
-    # centroid shift: a float64 sum rounded once (the same bits on every
-    # device)
+    # centroid shift: the float32 sum in XLA's order over the padded lanes
+    # of the JAX package (max_scene_points rows), divided by the count
     kept = valid.sum(dtype=torch.int32)
     cnt = torch.clamp(kept.to(torch.float64), min=1.0)
-    centroid = (torch.where(valid[:, None], pos, 0.0).to(torch.float64).sum(0)
+    centroid = (xla_sum0(torch.where(valid[:, None], pos, 0.0)).double()
                 / cnt).to(torch.float32)
     pos = torch.where(valid[:, None], pos - centroid, 0.0)
     return dict(

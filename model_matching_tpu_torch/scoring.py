@@ -20,10 +20,12 @@ differently on the CPU and on a GPU.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
+from .ops import fmath
 from .ops.densefield import DenseField, field_lookup
 from .ops.fp import dot3
 from .ops.gridhash import (
@@ -33,9 +35,17 @@ from .ops.gridhash import (
 )
 
 
+@functools.lru_cache(maxsize=None)
+def _cos_gate_value(normal_angle_threshold_deg: float) -> float:
+    """cos of the threshold as the JAX package rounds it, evaluated once
+    on the CPU (the same bits as on the card)."""
+    return float(fmath.cos(torch.tensor(normal_angle_threshold_deg * (math.pi / 180.0),
+                                        dtype=torch.float32)))
+
+
 def _cos_gate(normal_angle_threshold_deg, device):
-    return torch.cos(torch.tensor(normal_angle_threshold_deg * (math.pi / 180.0),
-                                  dtype=torch.float32, device=device))
+    return torch.full((), _cos_gate_value(normal_angle_threshold_deg),
+                      dtype=torch.float32, device=device)
 
 
 def _weight_sum(w):

@@ -104,13 +104,10 @@ def test_ppf_keys_and_inverse_fanout_equal_jax():
     want = np.asarray(jops.ppf_keys(*map(jnp.asarray, args), 5, 5))
     got = tops.ppf_keys(*map(torch.from_numpy, args), 5, 5)
     assert got.dtype == torch.int32
-    got = got.numpy()
-    differ = got != want
-    assert differ.sum() <= 1e-3 * got.size, int(differ.sum())
-    assert ((got >= 0) == (want >= 0)).all()
-    steps = np.abs(tppf.unpack_key_np(got[differ], 5, 5)
-                   - tppf.unpack_key_np(want[differ], 5, 5))
-    assert ((steps[:, 0] == 0) & (steps[:, 1:].sum(axis=1) == 5)).all(), steps
+    # the PPF angles go through ops/fmath.atan2 (glibc's atan2f, as XLA
+    # calls it): every key equal
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want >= 0).any()
     for tr, rot in ((5, 5), (10, 12)):
         d = tops.inverse_fanout_deltas(tr, rot)
         np.testing.assert_array_equal(d, np.asarray(jops.inverse_fanout_deltas(tr, rot)))
