@@ -153,20 +153,63 @@ Phases, in order; any failure exits nonzero and prints no result:
              MM_NO_NATIVE=1 (the same ppf_table.npz).
 
 13. fmath  — runs right after phase 2: ops/fmath.py's float32 atan2, atan,
-             acos, asin, sin, cos, log and log2 on the card against the CPU
+             acos, asin, sin, cos, log, log2 and pow on the card against the CPU
              over 1,000,003 seeded inputs each (the call sites' domains)
              plus the edge cases (signed zeros, +-1 and neighbours, tiny,
-             denormals, infinities, NaN, large arguments), atan2 also over
-             every pair of edge values, and fp.xla_sum0 (the scene
+             denormals, infinities, NaN, large arguments), atan2 and pow
+             also over every pair of edge values (pow over the block
+             decay's bases in (0, 1] with integer exponents 0..256 and over
+             random finite pairs), and fp.xla_sum0 (the scene
              centroid's sum): equal bits required. Each function's call
              time and operator count (a kernel each) are printed beside
              torch's own call.
 
+14. presets — runs last: the packed and linemod presets at full width.
+             Packed: the 640x480 bin of eight boxes of
+             synthetic.write_synthetic_packed_scene (edge.png along the box
+             boundaries: the instance path) written to
+             build/chip_smoke_packed/, cli.main(["model-preprocess", ...,
+             "--preset", "packed"]) (the box's densest PPF bin union printed
+             and required above the 16,384-pair tier), then
+             ["stocs-single", ..., "--preset", "packed"] with both kernels'
+             launch counts reset just before and the sampler's, congruent
+             step's and dense gate's inputs and outputs recorded. Requires:
+             both kernels launched; a dense-gate launch at P=Q=26,112 with
+             a live mask that has dead tiles (its live share printed); the
+             pose on the scene and on one of the boxes; every dense-gate
+             launch equal to the plain version (first two and last base)
+             and timed beside its bound; two top-tier bases alone (one-base
+             launches run blocks of 112 rows, which straddle a live and a
+             dead 256-row P tile) equal too; every row gather equal to its
+             plain version; at full width the sampler on the CPU equal to
+             the card's (bases, masks, decayed prior) and congruent
+             extraction on the CPU, its dense gate replaced by the card's
+             outputs once its inputs (sorted cells, features, live masks)
+             were found equal, giving the card's pairs, totals and
+             selection_shortfall; the whole run card against CPU at 160x120
+             with 8,192 pairs per bin (banded, two Q chunks): the same
+             bases, masks, prior, congruent sets and best index, LCP within
+             1e-5, pose within 1e-4. Then one 2,048-base chunk of
+             ["--sweep", "2048", "--sweep-chunk", "2048", "--cluster"]
+             (bases/s and each step's ms a base printed; its launches
+             checked; the pose on a box); an estimator run with
+             instance_block_size=8 (a decay exponent of at least 2; its
+             decayed prior and masks equal to the CPU sampler's bit for
+             bit; sampling's ms and kernels a base beside block size 1).
+             Linemod: the shell written in millimetres
+             (synthetic.write_synthetic_scene(preset="linemod")) to
+             build/chip_smoke_linemod/, model-preprocess and stocs-single
+             at the preset: both kernels launched, ingest card == CPU bit
+             for bit, the pose on the scene and its ADD-S under 10% of the
+             diameter (`eval --model-scale 0.001`), the launches checked.
+
 The line before the last is a JSON object describing the kernels (their
 `launches` are those of phase 7's run; `launches_instance`,
 `launches_sweep`, `launches_multi`, `launches_multi_edge`,
-`launches_sharded` and `launches_sharded_instance` those of phases 8-10
-and 12); the last line is {"ok": true, "device": {...}}.
+`launches_sharded`, `launches_sharded_instance`, `launches_packed`,
+`launches_packed_sweep`, `launches_packed_block8` and `launches_linemod`
+those of phases 8-10, 12 and 14); the last line is {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -470,6 +513,16 @@ def main() -> int:
           f"(limit {1.5 * cfg.distance_threshold})")
     if not med < 1.5 * cfg.distance_threshold:
         raise AssertionError("the posed model does not land on the scene")
+    # which dense tiers this model can reach: a base goes to the top tier
+    # only when a side's PPF bin union holds more than the tier below
+    from model_matching_tpu_torch.congruent import tier_plan
+
+    most, _bins = densest_bin_union(model.table)
+    below = tier_plan(cfg.max_pairs_per_bin)[0][-1][0]
+    print(f"the model's densest PPF bin union holds {most} pairs, "
+          f"{'over' if most > below else 'at or under'} the {below}-pair tier: "
+          f"{'some' if most > below else 'no'} base of this model can reach the "
+          f"{cfg.max_pairs_per_bin}-pair top tier")
 
     # ---- 3, continued: the kernel on the main path's own launches
     _phase("kernel on the recorded launches")
@@ -534,6 +587,10 @@ def main() -> int:
     sharded = _sharded_phase(torch, dev, dense_gate, dense_gate_reference, row_gather,
                              multi, sweep)
 
+    # ---- 14. the packed and linemod presets at full width
+    _phase("presets")
+    presets = _presets_phase(torch, dev, dense_gate, dense_gate_reference, row_gather)
+
     field = max((r for r in gather_shapes if r["what"] == "field rows"),
                 key=lambda r: r["bytes"])
     print(json.dumps({"kernels": [{
@@ -544,7 +601,11 @@ def main() -> int:
         "launches": files["dense_gate_launches"],
         "max_abs_err": max(max_err, recorded["max_abs_err"],
                            inst["gate_max_abs_err"], sweep["gate_max_abs_err"],
-                           multi["gate_max_abs_err"], sharded["gate_max_abs_err"]),
+                           multi["gate_max_abs_err"], sharded["gate_max_abs_err"],
+                           presets["gate_max_abs_err"],
+                           presets["sweep"]["gate_max_abs_err"],
+                           presets["block"]["gate_max_abs_err"],
+                           presets["linemod"]["gate_max_abs_err"]),
         "ms": recorded["ms"],
         "plain_ms": recorded["plain_ms"],
         "bound_ms": recorded["bound_ms"],
@@ -558,6 +619,14 @@ def main() -> int:
         "launches_multi_edge": multi["edge"]["dense_gate_launches"],
         "launches_sharded": sharded["dense_gate_launches"],
         "launches_sharded_instance": sharded["instance"]["dense_gate_launches"],
+        "launches_packed": presets["dense_gate_launches"],
+        "launches_packed_sweep": presets["sweep"]["dense_gate_launches"],
+        "launches_packed_block8": presets["block"]["dense_gate_launches"],
+        "launches_linemod": presets["linemod"]["dense_gate_launches"],
+        "packed_launches_timed": presets["launch_rows"],
+        "recorded_packed_sweep_launches": presets["sweep"]["gates"],
+        "recorded_packed_block8_launches": presets["block"]["gates"],
+        "recorded_linemod_launches": presets["linemod"]["gates"],
         "recorded_main_path_launch": recorded,
         "recorded_instance_launches": inst["gates"],
         "recorded_sweep_chunk_launches": sweep["gates"],
@@ -572,7 +641,10 @@ def main() -> int:
         "launches": files["row_gather_launches"],
         "max_abs_err": max(gather_err, inst["gather_max_abs_err"],
                            sweep["gather_max_abs_err"], multi["gather_max_abs_err"],
-                           sharded["gather_max_abs_err"]),
+                           sharded["gather_max_abs_err"], presets["gather_max_abs_err"],
+                           presets["sweep"]["gather_max_abs_err"],
+                           presets["block"]["gather_max_abs_err"],
+                           presets["linemod"]["gather_max_abs_err"]),
         "ms": field["ms"],
         "plain_ms": field["plain_ms"],
         "bound_ms": field["bound_ms"],
@@ -586,6 +658,13 @@ def main() -> int:
         "launches_multi_edge": multi["edge"]["row_gather_launches"],
         "launches_sharded": sharded["row_gather_launches"],
         "launches_sharded_instance": sharded["instance"]["row_gather_launches"],
+        "launches_packed": presets["row_gather_launches"],
+        "launches_packed_sweep": presets["sweep"]["row_gather_launches"],
+        "launches_packed_block8": presets["block"]["row_gather_launches"],
+        "launches_linemod": presets["linemod"]["row_gather_launches"],
+        "packed_gathers": presets["gathers"],
+        "packed_sweep_gathers": presets["sweep"]["gathers"],
+        "packed_block8_gathers": presets["block"]["gathers"],
         "per_shape": gather_shapes,
         "instance_gathers": inst["gathers"],
         "sweep_chunk_gathers": sweep["gathers"],
@@ -631,19 +710,22 @@ class _record_gathers:
 
 class _record_gates:
     """Record the arguments of every dense-gate launch that congruent
-    extraction makes, by wrapping the name its call site uses. The real
-    wrapper still launches and counts."""
+    extraction makes (and, with keep_outputs, its outputs), by wrapping the
+    name its call site uses. The real wrapper still launches and counts."""
 
-    def __init__(self):
+    def __init__(self, keep_outputs=False):
         from model_matching_tpu_torch import congruent
 
         self._mod = congruent
         self._real = congruent.dense_gate
-        self.calls = []
+        self.calls, self.outputs = [], []
 
         def recording(*args, **kw):
             self.calls.append((args, kw))
-            return self._real(*args, **kw)
+            out = self._real(*args, **kw)
+            if keep_outputs:
+                self.outputs.append(out)
+            return out
 
         congruent.dense_gate = recording
 
@@ -739,6 +821,23 @@ def _fmath_phase(torch, dev):
           f"{_launches(torch, lambda: torch.atan2(yg, xg))} ops)")
     if bad:
         raise AssertionError("fmath.atan2 gives other bits on the card")
+    # pow: the block decay's bases in (0, 1] with integer exponents 0..256,
+    # random finite pairs, and every pair of edge values
+    pb = np.concatenate([1.0 - rng.random(n), rng.normal(0, 1, n) * 10.0 ** rng.uniform(
+        -30, 30, n), ey.numpy()]).astype(np.float32)
+    pe = np.concatenate([rng.integers(0, 257, n), np.round(rng.normal(0, 30, n)),
+                         ex.numpy()]).astype(np.float32)
+    x, y = torch.from_numpy(pb), torch.from_numpy(pe)
+    xg, yg = x.to(dev), y.to(dev)
+    bad = differ(fmath.pow(xg, yg), fmath.pow(x, y))
+    total += x.numel()
+    print(f"fmath.pow: {x.numel()} pairs, {bad} differ card against CPU; call "
+          f"{_time_ms(torch, lambda: fmath.pow(xg, yg), runs=3):.4f} ms, "
+          f"{_launches(torch, lambda: fmath.pow(xg, yg))} ops (torch.pow "
+          f"{_time_ms(torch, lambda: torch.pow(xg, yg), runs=3):.4f} ms, "
+          f"{_launches(torch, lambda: torch.pow(xg, yg))} ops)")
+    if bad:
+        raise AssertionError("fmath.pow gives other bits on the card")
     for rows in (16384, 19200, 307200):
         p = torch.from_numpy(rng.normal(0.5, 0.2, (rows, 3)).astype(np.float32))
         if not torch.equal(xla_sum0(p.to(dev)).cpu(), xla_sum0(p)):
@@ -757,12 +856,20 @@ def _gate_bound(torch, dense_gate_reference, args, kw, ms):
     (one bucket operation per P row and Q column, plus the cone test, key
     packing and stripe max, 14 operations, for each pair of equal cells in
     an evaluated tile: the pairs whose float test the result depends on),
-    and the former one (a cell compare for every (p, q) pair, plus the same
-    14). The same-cell pairs are counted by the plain version with both
-    float tests off."""
+    and the former one (a cell compare for every (p, q) pair of an
+    evaluated tile, plus the same 14; a tile outside the live mask or past
+    the valid lanes is not evaluated). The same-cell pairs are counted by
+    the plain version with both float tests off."""
+    from model_matching_tpu_torch.ops.dense_gate import P_TILE, _tile_ok
+
     pc, qc = args[2], args[3]
     b, p = pc.shape
     q = qc.shape[1]
+    n_pt, q_tile = -(-p // P_TILE), kw["q_tile"]
+    ok = _tile_ok(kw["p_count"], kw["q_count"], kw.get("live"), n_pt, q // q_tile, q_tile)
+    rows = torch.full((n_pt,), P_TILE, dtype=torch.int64, device=pc.device)
+    rows[-1] = p - P_TILE * (n_pt - 1)
+    evaluated = int((ok.sum((0, 2)) * rows).sum()) * q_tile
     tensors = list(args[2:7]) + [kw["p_count"], kw["q_count"]]
     if kw.get("live") is not None:
         tensors.append(kw["live"])
@@ -774,10 +881,10 @@ def _gate_bound(torch, dense_gate_reference, args, kw, ms):
     same = int(dense_gate_reference(*args, **off)[1].sum(dtype=torch.int64))
     bytes_ms = nbytes / _HBM_BYTES_PER_S * 1e3
     ops_ms = (b * (p + q) + 14 * same) / _FP32_OPS_PER_S * 1e3
-    former_ms = (b * p * q + 14 * same) / _FP32_OPS_PER_S * 1e3
+    former_ms = (evaluated + 14 * same) / _FP32_OPS_PER_S * 1e3
     bound = max(bytes_ms, ops_ms)
     out = {"bytes": nbytes, "same_cell_pairs": same,
-           "same_cell_share": same / (b * p * q),
+           "same_cell_share": same / (b * p * q), "evaluated_pairs": evaluated,
            "bound_ms": bound, "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
            "share_of_bound": bound / ms,
            "bound_ms_former_count": max(bytes_ms, former_ms),
@@ -1960,6 +2067,629 @@ def _commands_phase(torch, dev, multi):
     print(f"--profile trace {traces[0]}: {len(names)} events; kernel events {found}")
     if min(found.values()) <= 0:
         raise AssertionError(f"the profile trace does not name both kernels: {found}")
+
+
+def _gate_launch_rows(torch, calls, dense_gate, dense_gate_reference, where):
+    """Each recorded dense-gate launch timed on the device (CUDA events,
+    3 runs behind a device spin) beside its bound (_gate_bound, from the
+    launch's own inputs) and the plain version's time on one base."""
+    rows = []
+    for args, kw in calls:
+        b, p, q = args[2].shape[0], args[2].shape[1], args[3].shape[1]
+        ms = _device_ms(torch, lambda: dense_gate(*args, **kw), runs=3)
+        one_args, one_kw = _slice_bases(args, kw, [0])
+        plain_ms = _time_ms(torch, lambda: dense_gate_reference(*one_args, **one_kw), runs=1)
+        live = kw.get("live")
+        row = {"bases": b, "p": p, "q": q, "q_tile": kw["q_tile"], "ms": ms,
+               "ms_per_base": ms / b, "plain_ms_one_base": plain_ms,
+               "live_share": None if live is None else float(live.float().mean())}
+        row.update(_gate_bound(torch, dense_gate_reference, args, kw, ms))
+        rows.append(row)
+        print(f"{where} launch {b} bases P={p} Q={q} q_tile={kw['q_tile']} live="
+              f"{'-' if live is None else round(row['live_share'], 4)}: kernel {ms:.4f} ms "
+              f"on the device ({ms / b:.4f} ms a base), plain {plain_ms:.4f} ms for one "
+              f"base; {_bound_text(row)} ({_gpu_name_and_limit()})")
+    return rows
+
+
+def _on_a_box(np, pose, boxes, where):
+    """A 3x4 pose on one of the packed scene's boxes: centre within 1 cm,
+    axes along the box's up to its symmetries. Returns (box, distance)."""
+    r = pose[:, :3]
+    if not np.allclose(r @ r.T, np.eye(3), atol=1e-4) or abs(np.linalg.det(r) - 1) > 1e-4:
+        raise AssertionError(f"{where}: the pose's rotation is not orthonormal")
+    dist = [float(np.linalg.norm(g[:3, 3] - pose[:, 3])) for g in boxes]
+    k = int(np.argmin(dist))
+    axes = float(np.abs(np.abs(boxes[k][:3, :3].T @ r) - np.eye(3)).max())
+    if dist[k] > 0.01 or axes > 0.2:
+        raise AssertionError(f"{where}: the pose is on no box (nearest {k} at "
+                             f"{dist[k]:.4f} m, axes off by {axes:.3f})")
+    return k, dist[k]
+
+
+def _to_cpu(x):
+    """Tensors, packs and tuples of them on the CPU (packs by their .to)."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if hasattr(x, "_fields"):
+        return type(x)(*(_to_cpu(v) for v in x))
+    if hasattr(x, "to"):
+        return x.to("cpu")
+    return x
+
+
+def _same_args(torch, a, b):
+    """Dense-gate arguments equal, tensors bit for bit (b on the card)."""
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a, b.cpu())
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same_args(torch, x, y) for x, y in zip(a, b))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_args(torch, a[k], b[k]) for k in a)
+    return a == b
+
+
+def _presets_phase(torch, dev, dense_gate, dense_gate_reference, row_gather):
+    """The packed and linemod presets at full width (phase 14)."""
+    packed = _packed_phase(torch, dev, dense_gate, dense_gate_reference, row_gather)
+    packed["sweep"] = _packed_sweep(torch, dev, dense_gate, dense_gate_reference,
+                                    row_gather, packed)
+    packed["block"] = _packed_block_mode(torch, dev, dense_gate, dense_gate_reference,
+                                         row_gather, packed)
+    packed["linemod"] = _linemod_phase(torch, dev, dense_gate, dense_gate_reference,
+                                       row_gather)
+    return packed
+
+
+def _packed_phase(torch, dev, dense_gate, dense_gate_reference, row_gather):
+    import dataclasses
+
+    import numpy as np
+
+    from model_matching_tpu_torch import cli, congruent
+    from model_matching_tpu_torch import estimator as est_mod
+    from model_matching_tpu_torch.config import get_preset
+    from model_matching_tpu_torch.model import load_model_pack
+    from model_matching_tpu_torch.scene import load_scene
+    from model_matching_tpu_torch.synthetic import write_synthetic_packed_scene
+
+    root = os.path.join(_ROOT, "build", "chip_smoke_packed")
+    shutil.rmtree(root, ignore_errors=True)
+    obj = "packed_box"
+    scene_dir, cfg, boxes = write_synthetic_packed_scene(root, obj)
+    if cfg != get_preset("packed").match:
+        raise AssertionError("the scene was not written at the packed preset's camera")
+    t0 = time.perf_counter()
+    if cli.main(["model-preprocess", obj, "--repo-path", root, "--preset", "packed"]) != 0:
+        raise AssertionError("model-preprocess --preset packed failed")
+    t_pre = time.perf_counter() - t0
+    mdir = os.path.join(root, "models", obj)
+    model_files = (os.path.join(mdir, "model_search.ply"), os.path.join(mdir, "ppf_table.npz"))
+    model = load_model_pack(*model_files, cfg.max_model_points, device=dev)
+    most, bins = densest_bin_union(model.table)
+    top_cap = congruent.tier_plan(cfg.max_pairs_per_bin)[0][-1][0]
+    lanes = congruent._tier_shape(cfg.max_pairs_per_bin, 4096, model.pair_ep)[0]
+    print(f"packed: model-preprocess {t_pre:.3f} s, |M| = {int(model.valid.sum())}; the "
+          f"densest PPF bin union of the box holds {most} pairs (query bins "
+          f"{bins.tolist()}): over the {top_cap}-pair tier, so bases reach the "
+          f"{cfg.max_pairs_per_bin}-pair top tier ({lanes} lanes)")
+    if not top_cap < most <= cfg.max_pairs_per_bin:
+        raise AssertionError("the box's bins do not reach the top tier alone")
+
+    # the command, with the sampler's, congruent step's and dense gate's
+    # inputs and outputs recorded
+    log = _log_events()
+    gathers, gates = _record_gathers(), _record_gates(keep_outputs=True)
+    rec = {"inst": [], "cong": []}
+    real_s, real_c = est_mod._phase_sample_instance, est_mod._run_congruent
+
+    def sample(*a, **kw):
+        out = real_s(*a, **kw)
+        rec["inst"].append((a, kw, out))
+        return out
+
+    def cong(*a, **kw):
+        out = real_c(*a, **kw)
+        rec["cong"].append((a, kw, out))
+        return out
+
+    est_mod._phase_sample_instance, est_mod._run_congruent = sample, cong
+    dense_gate.launches = 0
+    row_gather.launches = 0
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main(["stocs-single", scene_dir, obj, "--repo-path", root,
+                       "--preset", "packed"])
+        t_single = time.perf_counter() - t0
+    finally:
+        est_mod._phase_sample_instance, est_mod._run_congruent = real_s, real_c
+        gathers.stop()
+        gates.stop()
+        log.stop()
+    counts = {"dense_gate_launches": dense_gate.launches,
+              "row_gather_launches": row_gather.launches}
+    if rc != 0:
+        raise AssertionError("stocs-single --preset packed failed")
+    run = log.last("stocs_run")
+    for w in log.warnings:
+        print(f"warning logged: {w}")
+    (s_args, s_kw, inst), = rec["inst"]
+    (c_args, c_kw, sets), = rec["cong"]
+    pair_max = int(sets.pair_counts.max())
+    short = int(congruent.selection_shortfall(sets, cfg))
+    print(f"packed: stocs-single {t_single:.3f} s (first run of the preset); launches "
+          f"{json.dumps(counts)}; phases_ms {json.dumps(run['timings_ms'])}; best_lcp "
+          f"{run['best_lcp']:.6f}, {run['bases']} bases, {run['hypotheses']} hypotheses; "
+          f"pair_count_max {pair_max}, selection_shortfall {short}, unconverged fills "
+          f"{run['unconverged_fills']}")
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"the packed path missed a kernel: {counts}")
+    top = [(a, kw) for a, kw in gates.calls
+           if a[2].shape[1] == lanes and kw.get("live") is not None]
+    if not top:
+        raise AssertionError(f"no dense-gate launch at P=Q={lanes} with a live mask: "
+                             f"{[tuple(a[2].shape) for a, _kw in gates.calls]}")
+    for a, kw in top:
+        live = kw["live"]
+        if a[3].shape[1] != lanes or bool(live.all()):
+            raise AssertionError(f"the top-tier launch is not square or has no dead tile")
+        print(f"packed top tier: {a[2].shape[0]} bases at P=Q={lanes}, live {list(live.shape)}: "
+              f"{float(live.float().mean()) * 100:.2f}% of the (P tile, Q chunk) pairs live")
+
+    scene = load_scene(*[os.path.join(scene_dir, n) for n in (
+        "rgb.png", "depth.png", f"probability_maps/{obj}.png", "probability_maps/edge.png")],
+        cfg, device=dev)
+    pose_file = os.path.join(scene_dir, f"best_pose_candidate_{obj}.txt")
+    _pose_file_on_scene(torch, dev, np, pose_file, model_files[0], scene, cfg)
+    k, d = _on_a_box(np, np.loadtxt(pose_file).reshape(3, 4), boxes, "packed stocs-single")
+    print(f"packed: the pose is on box {k} (centre {d * 1e3:.2f} mm away)")
+
+    # the kernels against their plain versions on this run's launches, each
+    # launch timed beside its bound
+    gate_rows = _check_recorded_gates(torch, gates.calls, dense_gate,
+                                      dense_gate_reference, "packed")
+    straddle = _straddling_blocks(torch, top[0], dense_gate, dense_gate_reference)
+    launch_rows = _gate_launch_rows(torch, gates.calls, dense_gate, dense_gate_reference,
+                                    "packed")
+    gather_rows, gather_err = _check_gathers(
+        torch, _recorded_gather_cases(gathers.calls), time_repeats=False)
+    gathers.calls.clear()
+
+    # the card against the port on the CPU at full width: the sampler on the
+    # recorded inputs; congruent extraction on the recorded bases, the CPU's
+    # dense gate replaced by the card's outputs of the same launch (held to
+    # the plain version above) after its inputs were found equal to the
+    # card's: the cell sort, its permutation, the live mask, the selection,
+    # the totals and selection_shortfall
+    t0 = time.perf_counter()
+    inst_cpu = real_s(*[_to_cpu(a) for a in s_args], **s_kw)
+    for f in inst._fields:
+        if not torch.equal(getattr(inst, f).cpu(), getattr(inst_cpu, f)):
+            raise AssertionError(f"packed: the sampler's {f} differs card against CPU")
+    t_inst = time.perf_counter() - t0
+    replay = list(zip(gates.calls, gates.outputs))
+
+    def replayed(*args, **kw):
+        (g_args, g_kw), g_out = replay.pop(0)
+        if not (_same_args(torch, args, g_args) and _same_args(torch, kw, g_kw)):
+            raise AssertionError("packed: a dense-gate launch's inputs differ card "
+                                 "against CPU (cell sort, live mask or features)")
+        return tuple(t.cpu() for t in g_out)
+
+    congruent.dense_gate = replayed
+    try:
+        t0 = time.perf_counter()
+        sets_cpu = real_c(*[_to_cpu(a) for a in c_args], **c_kw)
+    finally:
+        congruent.dense_gate = gates._real
+    if replay:
+        raise AssertionError("packed: the CPU made fewer dense-gate launches than the card")
+    for f in sets._fields:
+        if not torch.equal(getattr(sets, f).cpu(), getattr(sets_cpu, f)):
+            raise AssertionError(f"packed: congruent {f} differs card against CPU")
+    short_cpu = int(congruent.selection_shortfall(sets_cpu, cfg))
+    if short_cpu != short:
+        raise AssertionError("packed: selection_shortfall differs card against CPU")
+    print(f"packed at full width, card against CPU: {int(inst.valid.sum())} instance bases, "
+          f"masks, decayed prior equal (CPU {t_inst:.3f} s); {len(gates.calls)} dense-gate "
+          f"launches with equal inputs (sorted cells, features, live masks); pairs, "
+          f"quad_valid, totals ({int(sets.total_found.sum())}) and pair counts equal; "
+          f"selection_shortfall {short} on both (CPU {time.perf_counter() - t0:.3f} s)")
+    gates.calls.clear()
+    gates.outputs.clear()
+
+    small = _packed_small(torch, dev, model, cfg, root, obj)
+    return dict(counts, root=root, scene_dir=scene_dir, obj=obj, cfg=cfg, boxes=boxes,
+                model_files=model_files, densest_union=most, lanes=lanes, straddle=straddle,
+                pair_count_max=pair_max, selection_shortfall=short,
+                gates=gate_rows, launch_rows=launch_rows,
+                gate_max_abs_err=gate_rows["max_abs_err"], gathers=gather_rows,
+                gather_max_abs_err=gather_err, phases_ms=run["timings_ms"],
+                wall_s=t_single, small=small)
+
+
+def densest_bin_union(table):
+    """The most pairs that one query's 128-way fan-out (`lookup_pair_range`)
+    can gather from `table`, over every query a scene pair can make, and
+    the query bins [4] that gather them: (pairs, bins). Congruent
+    extraction sends a base to its top tier when a side gathers more pairs
+    than the tier below holds, so this says whether a model can reach
+    that tier at all. Counted on the host over the dense grid of key
+    coordinates: each query's union is the sum of the exact bins' counts
+    at its 128 source offsets."""
+    import numpy as np
+
+    from model_matching_tpu_torch.ops.ppf import MIN_DISTANCE_BIN_MM, fanout_deltas
+    from model_matching_tpu_torch.ppf_table import unpack_key_np
+
+    keys = table.bin_keys.cpu().numpy()
+    occ = keys >= 0
+    disc = np.array([table.tr_disc] + [table.rot_disc] * 3)
+    coords = unpack_key_np(keys[occ], table.tr_disc, table.rot_disc) // disc
+    pad = 3                           # the offsets reach 2 below and 1 above
+    grid = np.zeros(coords.max(0) + 2 * pad + 1, np.int64)
+    np.add.at(grid, tuple((coords + pad).T),
+              table.bin_count.cpu().numpy()[occ].astype(np.int64))
+    union = np.zeros_like(grid)
+    for d in fanout_deltas(table.tr_disc, table.rot_disc):
+        union += np.roll(grid, shift=tuple(d), axis=(0, 1, 2, 3))
+    # queries that exist: a distance above the minimum bin, angles in
+    # [0, 180] degrees
+    q = [np.arange(n) - pad for n in grid.shape]
+    ok = ((q[0] * table.tr_disc > MIN_DISTANCE_BIN_MM)[:, None, None, None]
+          & np.logical_and.reduce(np.meshgrid(
+              *[(a >= 0) & (a * table.rot_disc <= 180) for a in q[1:]],
+              indexing="ij"))[None])
+    union = np.where(ok, union, 0)
+    best = np.unravel_index(int(np.argmax(union)), union.shape)
+    bins = (np.array(best) - pad) * disc
+    return int(union[best]), bins.astype(np.int32)
+
+
+def _straddling_blocks(torch, launch, dense_gate, dense_gate_reference):
+    """The top-tier launch's bases one at a time: a one-base launch has
+    blocks of fewer rows, which straddle two 256-row P tiles; where one of
+    the two tiles is live for a Q chunk and the other dead, the dead tile's
+    rows must add no match and no count. The two bases with the most such
+    (block, Q chunk) pairs are checked kernel == plain; at least one pair
+    is required."""
+    from model_matching_tpu_torch.ops.dense_gate import P_TILE, gate_rows
+
+    args, kw = launch
+    b, p = args[2].shape
+    dev = args[2].device
+    rows, rows_launch = gate_rows(1, p, dev), gate_rows(b, p, dev)
+    r0 = torch.arange(0, p, rows, device=dev)
+    t0, t1 = r0 // P_TILE, torch.clamp(r0 + rows - 1, max=p - 1) // P_TILE
+    live = kw["live"]
+    mixed = ((live[:, t0] != live[:, t1]) & (t0 != t1)[None, :, None]).sum((1, 2))
+    pick = torch.argsort(mixed, descending=True, stable=True)[:2].tolist()
+    if int(mixed[pick[0]]) == 0:
+        raise AssertionError(f"no block of {rows} rows straddles a live and a dead P tile")
+    for k in pick:
+        one_args, one_kw = _slice_bases(args, kw, [k])
+        _gate_equal(torch, dense_gate, dense_gate_reference, one_args, one_kw,
+                    f"packed top tier, base {k} alone ({rows}-row blocks)")
+    print(f"packed top tier, one base a launch: {rows}-row blocks (the {b}-base launch "
+          f"ran {rows_launch}-row blocks); bases {pick} have "
+          f"{[int(mixed[k]) for k in pick]} (block, Q chunk) pairs across a live and a dead "
+          f"P tile; kernel == plain on each")
+    return {"rows_one_base": rows, "rows_launch": rows_launch,
+            "bases": pick, "mixed_pairs": [int(mixed[k]) for k in pick]}
+
+
+def _packed_small(torch, dev, model, cfg, root, obj):
+    """The card against the CPU on the whole instance run at 160x120, the
+    caps of tests/test_torch_presets.py (8,192 pairs per bin, banded: two Q
+    chunks of 4,352), 16 bases: bases, masks, decayed prior, congruent
+    sets and selection_shortfall equal, the same best index, LCP within
+    1e-5, pose within 1e-4."""
+    import dataclasses
+
+    from model_matching_tpu_torch import congruent
+    from model_matching_tpu_torch import estimator as est_mod
+    from model_matching_tpu_torch.scene import load_scene
+    from model_matching_tpu_torch.synthetic import write_synthetic_packed_scene
+
+    small_dir, small_cfg, _boxes = write_synthetic_packed_scene(
+        os.path.join(root, "small"), obj, scale=0.25)
+    small_cfg = dataclasses.replace(small_cfg, number_of_bases=16, max_pairs_per_bin=8192,
+                                    congruent_band_min_cap=8192)
+    maps = os.path.join(small_dir, "probability_maps")
+    paths = [os.path.join(small_dir, "rgb.png"), os.path.join(small_dir, "depth.png"),
+             os.path.join(maps, f"{obj}.png"), os.path.join(maps, "edge.png")]
+    real_s, real_c = est_mod._phase_sample_instance, est_mod._run_congruent
+    res = {}
+    got = []
+
+    def recorded(real):
+        def call(*a, **kw):
+            got.append(real(*a, **kw))
+            return got[-1]
+        return call
+
+    for name, d in (("cpu", "cpu"), ("cuda", dev)):
+        got.clear()
+        est_mod._phase_sample_instance = recorded(real_s)
+        est_mod._run_congruent = recorded(real_c)
+        try:
+            t0 = time.perf_counter()
+            out = est_mod.StocsEstimator(model.to(d), load_scene(*paths, small_cfg, device=d),
+                                         small_cfg).run(verbose=False)
+            wall = time.perf_counter() - t0
+        finally:
+            est_mod._phase_sample_instance, est_mod._run_congruent = real_s, real_c
+        res[name] = (*got, out, wall)
+    (i_c, s_c, r_c, t_c), (i_g, s_g, r_g, _t_g) = res["cpu"], res["cuda"]
+    same = (all(torch.equal(getattr(i_c, f), getattr(i_g, f).cpu()) for f in i_c._fields)
+            and all(torch.equal(getattr(s_c, f), getattr(s_g, f).cpu()) for f in s_c._fields))
+    sh = [int(congruent.selection_shortfall(s, small_cfg)) for s in (s_c, s_g)]
+    pose_err = float(abs(r_c.best_world_transform - r_g.best_world_transform).max())
+    print(f"packed 160x120, 16 bases, 8,192 pairs per bin: card against CPU: bases, masks, "
+          f"prior, congruent sets equal: {same}; selection_shortfall {sh}; pair_count_max "
+          f"{int(s_c.pair_counts.max())}; best_index cpu {r_c.best_index} cuda "
+          f"{r_g.best_index}; best_lcp cpu {r_c.best_lcp:.7f} cuda {r_g.best_lcp:.7f}; "
+          f"pose max abs diff {pose_err:.2e}; CPU run {t_c:.3f} s (load_scene included)")
+    if (not same or sh[0] != sh[1] or r_c.best_index != r_g.best_index
+            or r_c.best_index < 0 or abs(r_c.best_lcp - r_g.best_lcp) > 1e-5
+            or pose_err > 1e-4):
+        raise AssertionError("the packed instance path on the card disagrees with the CPU")
+    return {"same": same, "selection_shortfall": sh[1], "best_index": r_g.best_index}
+
+
+class _phase_clock:
+    """Wall time of the estimator's sampling, congruent, fit and scoring
+    steps (each ended by a synchronize), by wrapping the names the sweep
+    calls."""
+
+    _NAMES = ("_phase_sample_instance", "_run_congruent", "_phase_fit", "_phase_score")
+
+    def __init__(self, torch):
+        from model_matching_tpu_torch import estimator as est_mod
+
+        self._mod, self._real = est_mod, {n: getattr(est_mod, n) for n in self._NAMES}
+        self.seconds = dict.fromkeys(self._NAMES, 0.0)
+
+        def timed(name):
+            def call(*a, **kw):
+                t0 = time.perf_counter()
+                out = self._real[name](*a, **kw)
+                torch.cuda.synchronize()
+                self.seconds[name] += time.perf_counter() - t0
+                return out
+            return call
+
+        for n in self._NAMES:
+            setattr(est_mod, n, timed(n))
+
+    def stop(self):
+        for n, f in self._real.items():
+            setattr(self._mod, n, f)
+
+
+def _packed_sweep(torch, dev, dense_gate, dense_gate_reference, row_gather, packed):
+    """One 2,048-base chunk of --sweep 2048 --sweep-chunk 2048 --cluster on
+    the packed scene: bases/s, the steps' ms a base, the launches checked."""
+    import numpy as np
+
+    from model_matching_tpu_torch import cli
+
+    root, scene_dir, obj = packed["root"], packed["scene_dir"], packed["obj"]
+    pose_file = os.path.join(scene_dir, f"best_pose_candidate_{obj}.txt")
+    os.remove(pose_file)
+    log = _log_events()
+    gathers, gates = _record_gathers(), _record_gates()
+    clock = _phase_clock(torch)
+    dense_gate.launches = 0
+    row_gather.launches = 0
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main(["stocs-single", scene_dir, obj, "--repo-path", root, "--preset",
+                       "packed", "--sweep", "2048", "--sweep-chunk", "2048", "--cluster"])
+        t_cmd = time.perf_counter() - t0
+    finally:
+        clock.stop()
+        gathers.stop()
+        gates.stop()
+        log.stop()
+    counts = {"dense_gate_launches": dense_gate.launches,
+              "row_gather_launches": row_gather.launches}
+    if rc != 0 or not os.path.exists(pose_file):
+        raise AssertionError("the packed sweep failed")
+    for w in log.warnings:
+        print(f"warning logged: {w}")
+    ev = log.last("stocs_sweep")
+    per_base = {k.lstrip("_").replace("phase_", ""): v / 2048 * 1e3
+                for k, v in clock.seconds.items()}
+    print(f"packed sweep, one 2048-base chunk ({_gpu_name_and_limit()}): command "
+          f"{t_cmd:.3f} s; {ev['bases_per_sec']:.1f} bases/s, "
+          f"{ev['hypotheses_per_sec']:.1f} hypotheses/s over {ev['seconds']:.3f} s "
+          f"({ev['hypotheses']} hypotheses, best_lcp {ev['best_lcp']:.6f}, "
+          f"{ev['clusters']} clusters, pair_count_max {ev['pair_count_max']}); ms a base "
+          f"(each step ended by a synchronize): "
+          + json.dumps({k: round(v, 4) for k, v in per_base.items()})
+          + f"; launches {json.dumps(counts)}")
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"the packed sweep missed a kernel: {counts}")
+    _on_a_box(np, np.loadtxt(pose_file).reshape(3, 4), packed["boxes"], "packed sweep")
+    gate_rows = _check_recorded_gates(torch, gates.calls, dense_gate,
+                                      dense_gate_reference, "packed sweep chunk")
+    gather_rows, gather_err = _check_gathers(
+        torch, _recorded_gather_cases(gathers.calls), time_repeats=False)
+    gates.calls.clear()
+    gathers.calls.clear()
+    return dict(counts, bases_per_sec=ev["bases_per_sec"],
+                hypotheses_per_sec=ev["hypotheses_per_sec"], ms_per_base=per_base,
+                gates=gate_rows, gate_max_abs_err=gate_rows["max_abs_err"],
+                gathers=gather_rows, gather_max_abs_err=gather_err)
+
+
+def _packed_block_mode(torch, dev, dense_gate, dense_gate_reference, row_gather, packed):
+    """instance_block_size=8 on the packed scene: an estimator run on the
+    card, its dense-gate launches and row gathers held to their plain
+    versions, its decayed prior equal to the CPU's bit for bit (the decay's
+    power is fmath.pow), and sampling's ms and kernels a base beside block
+    size 1."""
+    import dataclasses
+
+    import numpy as np
+
+    from model_matching_tpu_torch import estimator as est_mod
+    from model_matching_tpu_torch import rng
+    from model_matching_tpu_torch.model import load_model_pack
+    from model_matching_tpu_torch.ops import fmath
+    from model_matching_tpu_torch.scene import load_scene
+
+    cfg = packed["cfg"]
+    cfg8 = dataclasses.replace(cfg, instance_block_size=8)
+    scene_dir, obj = packed["scene_dir"], packed["obj"]
+    paths = [os.path.join(scene_dir, n) for n in (
+        "rgb.png", "depth.png", f"probability_maps/{obj}.png", "probability_maps/edge.png")]
+    scene = load_scene(*paths, cfg8, device=dev)
+    model = load_model_pack(*packed["model_files"], cfg8.max_model_points, device=dev)
+    exps, real_pow = [], fmath.pow
+
+    def power(x, y):
+        exps.append(y.max())
+        return real_pow(x, y)
+
+    fmath.pow = power
+    gathers, gates = _record_gathers(scene), _record_gates()
+    dense_gate.launches = 0
+    row_gather.launches = 0
+    try:
+        est = est_mod.StocsEstimator(model, scene, cfg8)
+        t0 = time.perf_counter()
+        res = est.run(verbose=False)
+        wall = time.perf_counter() - t0
+    finally:
+        fmath.pow = real_pow
+        gathers.stop()
+        gates.stop()
+    counts = {"dense_gate_launches": dense_gate.launches,
+              "row_gather_launches": row_gather.launches}
+    top_exp = float(torch.stack(exps).max()) if exps else 0.0
+    if min(counts.values()) <= 0 or top_exp < 2:
+        raise AssertionError(f"block mode missed a kernel or never decayed twice in a "
+                             f"block: {counts}, largest exponent {top_exp}")
+    if res.best_index < 0:
+        raise AssertionError("block mode found no pose")
+    _on_a_box(np, res.best_world_transform[:3], packed["boxes"], "block mode")
+    gate_rows = _check_recorded_gates(torch, gates.calls, dense_gate,
+                                      dense_gate_reference, "packed block 8")
+    gather_rows, gather_err = _check_gathers(
+        torch, _recorded_gather_cases(gathers.calls), time_repeats=False)
+    gates.calls.clear()
+    gathers.calls.clear()
+    k_sample = rng.split(rng.PRNGKey(cfg8.seed))[0]
+    t0 = time.perf_counter()
+    inst_cpu = est_mod._phase_sample_instance(
+        k_sample, model.table.to("cpu"), scene.to("cpu"), scene.class_prob.cpu(), cfg8,
+        cfg8.number_of_bases)
+    t_cpu = time.perf_counter() - t0
+    if not (torch.equal(est.class_prob.cpu(), inst_cpu.class_prob)
+            and torch.equal(est.seg_masks.cpu(), inst_cpu.seg_masks)):
+        raise AssertionError("block mode: the decayed prior or the masks differ card "
+                             "against CPU")
+
+    def sampling(block, n):
+        c = dataclasses.replace(cfg, instance_block_size=block)
+        return lambda: est_mod._phase_sample_instance(
+            k_sample, model.table, scene, scene.class_prob, c, n)
+
+    out = {}
+    for block in (1, 8):
+        n = cfg.number_of_bases
+        secs, _ = _median_wall(torch, sampling(block, n))
+        kernels = _launches(torch, sampling(block, 16)) / 16
+        out[block] = {"ms_per_base": secs / n * 1e3, "kernels_per_base": kernels}
+    print(f"block mode ({_gpu_name_and_limit()}): instance_block_size=8 estimator run "
+          f"{wall * 1e3:.3f} ms (first), best_lcp {res.best_lcp:.6f}; launches "
+          f"{json.dumps(counts)}; decay exponents up to {top_exp:g}; decayed prior and "
+          f"masks equal to the CPU's bit for bit (CPU sampler {t_cpu:.3f} s); sampling, "
+          f"warm median of 3, {cfg.number_of_bases} bases: block 1 "
+          f"{out[1]['ms_per_base']:.4f} ms a base, {out[1]['kernels_per_base']:.1f} "
+          f"kernels a base; block 8 {out[8]['ms_per_base']:.4f} ms a base, "
+          f"{out[8]['kernels_per_base']:.1f} kernels a base")
+    return dict(counts, wall_ms=wall * 1e3, largest_exponent=top_exp, sampling=out,
+                gates=gate_rows, gate_max_abs_err=gate_rows["max_abs_err"],
+                gathers=gather_rows, gather_max_abs_err=gather_err)
+
+
+def _linemod_phase(torch, dev, dense_gate, dense_gate_reference, row_gather):
+    """The linemod preset on mm-unit files at full width."""
+    import numpy as np
+
+    from model_matching_tpu_torch import cli
+    from model_matching_tpu_torch.config import get_preset
+    from model_matching_tpu_torch.io import ply
+    from model_matching_tpu_torch.scene import load_scene
+    from model_matching_tpu_torch.synthetic import write_synthetic_scene
+
+    root = os.path.join(_ROOT, "build", "chip_smoke_linemod")
+    shutil.rmtree(root, ignore_errors=True)
+    obj = "lm_shell"
+    scene_dir, cfg, gt = write_synthetic_scene(root, obj, preset="linemod")
+    if cfg != get_preset("linemod").match:
+        raise AssertionError("the scene was not written at the linemod preset's camera")
+    src = os.path.join(root, "models", obj, "textured_vertices.ply")
+    if not np.abs(ply.read_ply_cloud(src)[0]).max() > 10.0:
+        raise AssertionError("the linemod source cloud is not in millimetres")
+    t0 = time.perf_counter()
+    if cli.main(["model-preprocess", obj, "--repo-path", root, "--preset", "linemod"]) != 0:
+        raise AssertionError("model-preprocess --preset linemod failed")
+    t_pre = time.perf_counter() - t0
+    gathers, gates = _record_gathers(), _record_gates()
+    dense_gate.launches = 0
+    row_gather.launches = 0
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main(["stocs-single", scene_dir, obj, "--repo-path", root,
+                       "--preset", "linemod"])
+        t_single = time.perf_counter() - t0
+    finally:
+        gathers.stop()
+        gates.stop()
+    counts = {"dense_gate_launches": dense_gate.launches,
+              "row_gather_launches": row_gather.launches}
+    if rc != 0 or min(counts.values()) <= 0:
+        raise AssertionError(f"stocs-single --preset linemod failed or missed a kernel: "
+                             f"{counts}")
+    paths = [os.path.join(scene_dir, n) for n in
+             ("rgb.png", "depth.png", f"probability_maps/{obj}.png")]
+    gpu = load_scene(*paths, None, cfg, device=dev)
+    cpu = load_scene(*paths, None, cfg, device="cpu")
+    for f in ("valid", "pos", "normal", "class_prob"):
+        if not torch.equal(getattr(gpu, f).cpu(), getattr(cpu, f)):
+            raise AssertionError(f"linemod: load_scene on the card differs from the CPU in {f}")
+    model_ply = os.path.join(root, "models", obj, "model_search.ply")
+    pose_file = os.path.join(scene_dir, f"best_pose_candidate_{obj}.txt")
+    _pose_file_on_scene(torch, dev, np, pose_file, model_ply, gpu, cfg)
+    gt_file = os.path.join(root, "gt_pose.txt")
+    with open(gt_file, "w") as f:
+        f.write(" ".join(f"{gt[r, c]:.9g}" for r in range(3) for c in range(4)) + "\n")
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = cli.main(["eval", pose_file, gt_file, "--model", src, "--model-scale", "0.001"])
+    report = json.loads(text.getvalue())
+    if rc != 0 or report["adds_pass_rate"] != 1.0:
+        raise AssertionError(f"linemod: ADD-S does not pass: {report}")
+    gate_rows = _check_recorded_gates(torch, gates.calls, dense_gate,
+                                      dense_gate_reference, "linemod")
+    gather_rows, gather_err = _check_gathers(
+        torch, _recorded_gather_cases(gathers.calls), time_repeats=False)
+    gates.calls.clear()
+    gathers.calls.clear()
+    print(f"linemod ({_gpu_name_and_limit()}): model-preprocess {t_pre:.3f} s (mm source, "
+          f"10 mm voxels), stocs-single {t_single:.3f} s, |S| = {int(gpu.count())}; ingest "
+          f"card == CPU bit for bit; ADD-S {report['adds_mean']:.6f} m against a threshold "
+          f"of {report['threshold']:.6f} m (10% of the diameter); launches "
+          f"{json.dumps(counts)}")
+    return dict(counts, adds=report["adds_mean"], threshold=report["threshold"],
+                gates=gate_rows, gate_max_abs_err=gate_rows["max_abs_err"],
+                gathers=gather_rows, gather_max_abs_err=gather_err)
 
 
 if __name__ == "__main__":

@@ -345,6 +345,27 @@ cudaError_t launch(dim3 grid, int rows, cudaStream_t st, const float* p_feat,
 // there are few rows; below 64 and past 128 rows the measured time rose at
 // the main path's shapes. A tuning build fixes the height instead with
 // -DMM_GATE_ROWS=<rows> (scripts/torch_gate_tune.py --rows).
+// mm_dense_gate_rows writes the height a launch of B bases of P rows takes
+// on the current device.
+extern "C" int mm_dense_gate_rows(int B, int P, int* rows_out) {
+#ifdef MM_GATE_ROWS
+  static_assert(MM_GATE_ROWS >= 16 && MM_GATE_ROWS <= 256 && MM_GATE_ROWS % 16 == 0,
+                "MM_GATE_ROWS: a multiple of 16 in [16, 256]");
+  *rows_out = MM_GATE_ROWS;
+#else
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e != cudaSuccess) return (int)e;
+  const int per_base = 2 * sms / B > 0 ? 2 * sms / B : 1;
+  int rows = ((P + per_base - 1) / per_base + 15) / 16 * 16;
+  *rows_out = rows < 64 ? 64 : (rows > 128 ? 128 : rows);
+#endif
+  return (int)cudaSuccess;
+}
+
 extern "C" int mm_dense_gate(const float* p_feat, const float* q_feat,
                              const int* p_cell, const int* q_cell,
                              const int* rp, const int* rq, const float* alpha,
@@ -358,21 +379,9 @@ extern "C" int mm_dense_gate(const float* p_feat, const float* q_feat,
       B > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-#ifdef MM_GATE_ROWS
-  static_assert(MM_GATE_ROWS >= 16 && MM_GATE_ROWS <= 256 && MM_GATE_ROWS % 16 == 0,
-                "MM_GATE_ROWS: a multiple of 16 in [16, 256]");
-  const int rows = MM_GATE_ROWS;
-#else
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) {
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  if (e != cudaSuccess) return (int)e;
-  const int per_base = 2 * sms / B > 0 ? 2 * sms / B : 1;
-  int rows = ((P + per_base - 1) / per_base + 15) / 16 * 16;
-  rows = rows < 64 ? 64 : (rows > 128 ? 128 : rows);
-#endif
+  int rows = 0;
+  const int e = mm_dense_gate_rows(B, P, &rows);
+  if (e != (int)cudaSuccess) return e;
   dim3 grid((P + rows - 1) / rows, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;

@@ -26,7 +26,7 @@ from typing import NamedTuple
 import torch
 
 from . import flood, rng, sampling
-from .ops import invariants
+from .ops import fmath, invariants
 from .ops.fp import sqrt_rn
 from .ppf_table import PPFTable
 
@@ -313,7 +313,7 @@ def sample_instance_bases_blocked(
         # when the sequential chain would (at the start of the following
         # base); padding steps have no follower either
         counts = (in_seg & decays[blk, None]).to(torch.float32).sum(dim=0)
-        class_prob = torch.where(valid, class_prob * torch.pow(disp, counts),
+        class_prob = torch.where(valid, class_prob * fmath.pow(disp, counts),
                                  class_prob)
         raws.append(torch.stack([idx1, idx2, idx3, idx4], dim=1))
         oks.append(ok1 & ok2 & ok3 & ok4)

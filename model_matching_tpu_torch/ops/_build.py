@@ -52,6 +52,8 @@ def _declare(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.mm_dense_gate.argtypes = [p] * 12 + [i, i, i, i, i, f, f, i, i, i, i, p]
     lib.mm_dense_gate.restype = ctypes.c_int
+    lib.mm_dense_gate_rows.argtypes = [i, i, ctypes.POINTER(i)]
+    lib.mm_dense_gate_rows.restype = ctypes.c_int
     lib.mm_row_gather.argtypes = [p, p, i, p, ctypes.c_longlong, i, p]
     lib.mm_row_gather.restype = ctypes.c_int
     return lib

@@ -19,6 +19,8 @@ int32 random streams [B, N].
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _build
@@ -186,3 +188,18 @@ def dense_gate(p_feat, q_feat, p_cell, q_cell, rp, rq, alpha, tol,
 
 
 dense_gate.launches = 0
+
+
+def gate_rows(b_n: int, p: int, device) -> int:
+    """The P rows one block of the kernel owns in a launch of b_n bases of
+    P lanes on the CUDA `device`: the launcher's own choice (a multiple of
+    16, so a block may straddle two P_TILE-row tiles)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"dense_gate.gate_rows: {dev} is not a CUDA device")
+    rows = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        err = _build.load().mm_dense_gate_rows(b_n, p, ctypes.byref(rows))
+    if err != 0:
+        raise RuntimeError(f"dense_gate.gate_rows: CUDA error {err}")
+    return rows.value

@@ -369,3 +369,123 @@ def log(x):
 def log2(x):
     """float32 log2(x) as jnp.log2 compiles: log(x) * float32(1 / ln 2)."""
     return log(x) * _INV_LN2
+
+
+# -------------------------------------------------------------------- pow
+
+# glibc 2.36's powf tables: __powf_log2_data (1/c and log2(c) for 16
+# subintervals of the mantissa, the log2(1 + r) polynomial A0..A4) and
+# __exp2f_data (the bit patterns of 2^(i/32) less i << 47, the shift that
+# rounds to multiples of 1/32, the 2^r polynomial C0..C2), as the library's
+# rodata holds them
+_POW_INVC = tuple(_from_hex(h) for h in (
+    "0x1.661ec79f8f3bep+0", "0x1.571ed4aaf883dp+0", "0x1.49539f0f010b0p+0",
+    "0x1.3c995b0b80385p+0", "0x1.30d190c8864a5p+0", "0x1.25e227b0b8ea0p+0",
+    "0x1.1bb4a4a1a343fp+0", "0x1.12358f08ae5bap+0", "0x1.0953f419900a7p+0",
+    "0x1.0p+0", "0x1.e608cfd9a47acp-1", "0x1.ca4b31f026aa0p-1",
+    "0x1.b2036576afce6p-1", "0x1.9c2d163a1aa2dp-1", "0x1.886e6037841edp-1",
+    "0x1.767dcf5534862p-1"))
+_POW_LOGC = tuple(_from_hex(h) for h in (
+    "-0x1.efec65b963019p-2", "-0x1.b0b6832d4fca4p-2", "-0x1.7418b0a1fb77bp-2",
+    "-0x1.39de91a6dcf7bp-2", "-0x1.01d9bf3f2b631p-2", "-0x1.97c1d1b3b7af0p-3",
+    "-0x1.2f9e393af3c9fp-3", "-0x1.960cbbf788d5cp-4", "-0x1.a6f9db6475fcep-5",
+    "0x0.0p+0", "0x1.338ca9f24f53dp-4", "0x1.476a9543891bap-3",
+    "0x1.e840b4ac4e4d2p-3", "0x1.40645f0c6651cp-2", "0x1.88e9c2c1b9ff8p-2",
+    "0x1.ce0a44eb17bccp-2"))
+_POW_A = tuple(_from_hex(h) for h in (
+    "0x1.27616c9496e0bp-2", "-0x1.71969a075c67ap-2", "0x1.ec70a6ca7baddp-2",
+    "-0x1.7154748bef6c8p-1", "0x1.71547652ab82bp+0"))
+_EXP2_T = (
+    0x3ff0000000000000, 0x3fefd9b0d3158574, 0x3fefb5586cf9890f, 0x3fef9301d0125b51,
+    0x3fef72b83c7d517b, 0x3fef54873168b9aa, 0x3fef387a6e756238, 0x3fef1e9df51fdee1,
+    0x3fef06fe0a31b715, 0x3feef1a7373aa9cb, 0x3feedea64c123422, 0x3feece086061892d,
+    0x3feebfdad5362a27, 0x3feeb42b569d4f82, 0x3feeab07dd485429, 0x3feea47eb03a5585,
+    0x3feea09e667f3bcd, 0x3fee9f75e8ec5f74, 0x3feea11473eb0187, 0x3feea589994cce13,
+    0x3feeace5422aa0db, 0x3feeb737b0cdc5e5, 0x3feec49182a3f090, 0x3feed503b23e255d,
+    0x3feee89f995ad3ad, 0x3feeff76f2fb5e47, 0x3fef199bdd85529c, 0x3fef3720dcef9069,
+    0x3fef5818dcfba487, 0x3fef7c97337b9b5f, 0x3fefa4afa2a490da, 0x3fefd0765b6e4540,
+)
+_EXP2_SHIFT = _from_hex("0x1.8p+47")
+_EXP2_C = tuple(_from_hex(h) for h in (
+    "0x1.c6af84b912394p-5", "0x1.ebfce50fac4f3p-3", "0x1.62e42ff0c52d6p-1"))
+_POW_OFLOW = _from_hex("0x1.fffffffd1d571p+6")   # y * log2(x) above: +-inf
+
+
+def _checkint(iy):
+    """glibc's checkint of float32 bits (int64 in [0, 2^32)): 0 if not an
+    integer, 1 if odd, 2 if even."""
+    e = (iy >> 23) & 0xFF
+    sh = (150 - e).clamp(0, 31)
+    frac = iy & ((1 << sh) - 1)
+    odd = (iy >> sh) & 1
+    out = torch.where(frac != 0, 0, torch.where(odd != 0, 1, 2))
+    return torch.where(e < 0x7F, 0, torch.where(e > 150, 2, out))
+
+
+def pow(x, y):
+    """float32 x ** y as glibc 2.36's powf computes it (its x86-64 FMA
+    build, which XLA's `power` calls): log2(|x|) in float64 from a 16-entry
+    table and a degree-5 polynomial, times y, then 2^(y log2 x) from a
+    32-entry table and a cubic, every multiply-add contracted, rounded once
+    to float32; the sign from an odd integer y; XLA's FTZ/DAZ flags (a
+    denormal x is scaled by 2^23 as zero, a denormal y counts as zero, a
+    denormal result becomes zero). Bit-equal to `jax.jit(jnp.power)` on
+    seeded bases in (0, 1] with integer exponents 0..256, on random
+    finite pairs, and on every pair of edge values
+    (tests/test_torch_fmath.py)."""
+    x, y = torch.broadcast_tensors(x.to(_F32), y.to(_F32))
+    dev = str(x.device)
+    ix = _bits(x).to(_I64) & 0xFFFFFFFF
+    iy = _bits(y).to(_I64) & 0xFFFFFFFF
+    yint = _checkint(iy)
+    x_neg = ix >= 0x80000000
+    ax = ix & 0x7FFFFFFF
+    # a denormal |x|: glibc normalizes x * 2^23, which DAZ makes 0
+    an = torch.where(ax < 0x800000, _k(0xF4800000, ax), ax)
+    tmp = (an - 0x3F330000) & 0xFFFFFFFF
+    i = (tmp >> 19) & 15
+    top = tmp & 0xFF800000
+    iz = ((an - top) & 0xFFFFFFFF) ^ 0x80000000
+    z = (iz - 0x80000000).to(_I32).view(_F32).double()
+    k = ((top ^ 0x80000000) - 0x80000000) >> 23
+    invc = _table(_POW_INVC, torch.float64, dev)[i]
+    logc = _table(_POW_LOGC, torch.float64, dev)[i]
+    a = _POW_A
+    r = _fma64(z, invc, _k(-1.0, z))
+    y0 = logc + k.double()
+    r2 = r * r
+    p1 = _fma64(r, _k(a[0], r), _k(a[1], r))
+    p2 = _fma64(r, _k(a[2], r), _k(a[3], r))
+    r4 = r2 * r2
+    q = _fma64(r, _k(a[4], r), y0)
+    q = _fma64(r2, p2, q)
+    ylogx = _flush(y).double() * _fma64(r4, p1, q)
+    # 2^ylogx: n / 32 the nearest multiple of 1/32, s = 2^(n / 32); beyond
+    # +-160 the result is 0 or inf whatever the clamped lanes compute
+    yl = torch.nan_to_num(ylogx, nan=0.0).clamp(-160.0, 160.0)
+    kd = (yl + _EXP2_SHIFT) - _EXP2_SHIFT
+    e = yl - kd
+    n = (kd * 32.0).to(_I64)
+    t = _table(_EXP2_T, _I64, dev)[n & 31] + n * (1 << 47)
+    s = t.view(torch.float64)
+    c = _EXP2_C
+    w = _fma64(e, _k(c[0], e), _k(c[1], e))
+    v = _fma64(e, _k(c[2], e), _k(1.0, e))
+    out = (_fma64(w, e * e, v) * s).float()
+    out = torch.where(ylogx > _POW_OFLOW, _k(torch.inf, out), _flush(out))
+    out = torch.where(x_neg & (yint == 1), -out, out)
+    # the special cases, in the reverse of glibc's order (the last wins)
+    nan = _k(torch.nan, out)
+    out = torch.where(x_neg & (yint == 0), nan, out)
+    x_zin = (ax == 0) | (ax >= 0x7F800000)
+    x2 = x * x
+    x2 = torch.where(x_neg & (yint == 1), -x2, x2)
+    out = torch.where(x_zin, torch.where(iy >= 0x80000000, 1.0 / x2, x2), out)
+    ay = iy & 0x7FFFFFFF
+    y_zin = (ay == 0) | (ay >= 0x7F800000)
+    y_inf = (ay == 0x7F800000) & ((ax < 0x3F800000) == (iy < 0x80000000))
+    yy = torch.where(y_inf, _k(0.0, out), y * y)
+    yy = torch.where(ax == 0x3F800000, _k(1.0, out), yy)
+    yy = torch.where((ax > 0x7F800000) | (ay > 0x7F800000), x + y, yy)
+    yy = torch.where((ix == 0x3F800000) | (ay == 0), _k(1.0, out), yy)
+    return torch.where(y_zin, yy, out)

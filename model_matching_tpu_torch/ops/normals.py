@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from . import fmath
-from .fp import div, div_const, dot3, f32, fma, mul_recip, sqrt_rn
+from .fp import div, div_const, dot3, f32, fma, mul_recip, sqrt_rn, xla_sum0
 from .voxel import _longest_run, neighbor_blocks
 
 
@@ -230,17 +230,27 @@ def radius_neighbor_indices(pos: np.ndarray, radius: float, cap: int):
 def pca_normals_from_neighbors(pos, nbr_idx, nbr_count, orient_outward_from_origin):
     """Batched PCA normals from padded neighbour lists: pos [N, 3],
     nbr_idx [N, cap] (-1 padding), nbr_count [N]. Oriented outward from the
-    origin (n . p >= 0) or toward it; NaN where fewer than 3 neighbours."""
+    origin (n . p >= 0) or toward it; NaN where fewer than 3 neighbours.
+
+    Rounds as the JAX function's compiled program: the mean sums the masked
+    neighbours in XLA's reduction order (`fp.xla_sum0`) and divides by the
+    count; the covariance is XLA's loop over the neighbours, one fused
+    multiply-add each from zero, then a true division by the count; the
+    orientation test is the contracted 3-term dot product. Bit-equal to the
+    jitted JAX function (tests/test_torch_ingest.py)."""
     cap = nbr_idx.shape[1]
-    mask = (torch.arange(cap, device=pos.device)[None, :]
-            < nbr_count[:, None]).to(pos.dtype)
-    nbrs = pos[torch.clamp(nbr_idx, min=0).long()]
+    mask = torch.arange(cap, device=pos.device)[None, :] < nbr_count[:, None]
+    nbrs = pos[torch.clamp(nbr_idx, min=0).long()]                 # [N, cap, 3]
     cnt = torch.clamp(nbr_count.to(pos.dtype), min=1.0)[:, None]
-    mean = (nbrs * mask[..., None]).sum(dim=1) / cnt
-    centered = (nbrs - mean[:, None, :]) * mask[..., None]
-    cov = torch.einsum("nki,nkj->nij", centered, centered) / cnt[..., None]
+    mean = div(xla_sum0(torch.where(mask[..., None], nbrs, 0.0).transpose(0, 1)), cnt)
+    centered = (nbrs - mean[:, None, :]) * mask[..., None].to(pos.dtype)
+    outer = torch.zeros((pos.shape[0], 3, 3), dtype=pos.dtype, device=pos.device)
+    for k in range(cap):
+        c = centered[:, k]
+        outer = fma(c[:, :, None], c[:, None, :], outer)
+    cov = div(outer, cnt[..., None])
     nrm = smallest_eigenvector_3x3(cov)
-    sign = (nrm * pos).sum(dim=-1, keepdim=True)
+    sign = dot3(nrm, pos)[:, None]
     if orient_outward_from_origin:
         nrm = torch.where(sign < 0, -nrm, nrm)
     else:

@@ -81,6 +81,18 @@ def test_kernel_matches_plain_on_cuda(p, q, q_tile, n_sub, check_cos, cells):
 
 
 @pytest.mark.cuda
+def test_gate_rows_is_the_launchers_height():
+    """gate_rows: a multiple of 16 in [64, 128], the height at which all of
+    a launch's blocks are resident (two an SM), and never below it."""
+    dev = _card()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for b, p in ((1, 26112), (8, 26112), (680, 8704), (1, 600)):
+        rows = tdg.gate_rows(b, p, dev)
+        assert rows % 16 == 0 and 64 <= rows <= 128
+        assert rows == 128 or -(-p // rows) * b <= 2 * sms or rows == 64
+
+
+@pytest.mark.cuda
 def test_estimator_cuda_matches_cpu(monkeypatch):
     """StocsEstimator.run on the card against the CPU at a small size, with
     every base sent to the top tier and that tier made dense, so the card

@@ -192,3 +192,13 @@ def test_wrapper_cpu_takes_plain_version_only():
     with pytest.raises(ValueError):
         tdg.dense_gate(*meta, **{k: v.to("meta") if isinstance(v, torch.Tensor)
                                  else v for k, v in kw.items()})
+
+
+def test_gate_rows_takes_only_a_cuda_device():
+    """The launcher's row height is asked of the card; on the CPU, where the
+    plain version has no blocks, gate_rows refuses and builds nothing."""
+    built = (_build._lib, tdg._kernel)
+    for dev in ("cpu", torch.device("cpu"), "meta"):
+        with pytest.raises(ValueError, match="not a CUDA device"):
+            tdg.gate_rows(1, 26112, dev)
+    assert (_build._lib, tdg._kernel) == built

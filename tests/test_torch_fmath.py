@@ -7,7 +7,10 @@ the domains of the port's call sites, plus the edge cases: signed zeros,
 large arguments. Each function is held bit for bit against
 `jax.jit(jnp.<f>)` (NaN against NaN). glibc's own atan2f, sinf and cosf,
 called through ctypes, are a second oracle on normal-range inputs.
-`fp.xla_sum0` is held bit for bit against a jitted `jnp.sum(..., axis=0)`."""
+`fp.xla_sum0` is held bit for bit against a jitted `jnp.sum(..., axis=0)`.
+`fmath.pow` is held against `jax.jit(jnp.power)` on the block decay's
+domain (bases in (0, 1], integer exponents 0..256), on random finite
+pairs and on every pair of edge values, and against glibc's powf."""
 
 import ctypes
 import ctypes.util
@@ -154,6 +157,49 @@ def test_against_glibc(name):
         want = np.array([f(a) for a in x.tolist()], np.float32)
         got = (fmath.sin if name == "sinf" else fmath.cos)(torch.from_numpy(x))
     assert _bits_equal(got, want) == 0
+
+
+def _pow_domain(kind, rng):
+    if kind == "decay":
+        # dispersion ** counts: bases in (0, 1], integer exponents 0..256
+        x = (1.0 - rng.random(N)).astype(np.float32)
+        x[:1000] = np.float32(1) - rng.integers(0, 64, 1000) * np.float32(2 ** -24)
+        return x, rng.integers(0, 257, N).astype(np.float32)
+    x = (rng.normal(size=N) * 10.0 ** rng.uniform(-30, 30, N)).astype(np.float32)
+    y = (rng.normal(size=N) * 10.0 ** rng.uniform(-3, 3, N)).astype(np.float32)
+    y[: N // 3] = np.round(y[: N // 3])      # negative bases need integers
+    return x, y
+
+
+@pytest.mark.parametrize("kind", ["decay", "random"])
+def test_pow_bit_equal_to_xla(kind):
+    x, y = _pow_domain(kind, np.random.default_rng(13 if kind == "decay" else 17))
+    want = np.asarray(jax.jit(jnp.power)(jnp.asarray(x), jnp.asarray(y)))
+    assert _bits_equal(fmath.pow(torch.from_numpy(x), torch.from_numpy(y)), want) == 0
+
+
+def test_pow_every_pair_of_edge_values():
+    """Signed zeros, +-1 and neighbours, denormals (XLA's DAZ/FTZ), the
+    infinities, NaN, odd and even integers, and exponents at the overflow
+    and underflow edges, in every combination."""
+    e = np.concatenate([_edges(), np.array(
+        [3.0, -3.0, 0.25, 126.0, 127.0, 128.0, 149.0, 150.0, 151.0, -149.5,
+         2.0 ** 24, 2.0 ** 24 + 2, 2.0 ** 23 + 1], np.float32)])
+    y, x = (v.ravel() for v in np.meshgrid(e, e))
+    want = np.asarray(jax.jit(jnp.power)(jnp.asarray(x), jnp.asarray(y)))
+    assert _bits_equal(fmath.pow(torch.from_numpy(x), torch.from_numpy(y)), want) == 0
+
+
+def test_pow_against_glibc():
+    """powf itself, through ctypes, where no denormal is involved."""
+    libm = ctypes.CDLL(ctypes.util.find_library("m"))
+    libm.powf.restype = ctypes.c_float
+    libm.powf.argtypes = [ctypes.c_float, ctypes.c_float]
+    rng = np.random.default_rng(19)
+    x = rng.uniform(0.5, 2.0, 20_000).astype(np.float32)
+    y = rng.uniform(-40, 40, 20_000).astype(np.float32)
+    want = np.array([libm.powf(a, b) for a, b in zip(x.tolist(), y.tolist())], np.float32)
+    assert _bits_equal(fmath.pow(torch.from_numpy(x), torch.from_numpy(y)), want) == 0
 
 
 @pytest.mark.parametrize("n", [31, 32, 33, 1000, 4096, 16384, 19200, 100_000])

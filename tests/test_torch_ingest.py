@@ -162,13 +162,11 @@ def test_eigenvector_and_neighbor_normals(voxels):
         want = np.asarray(jax.jit(jnrm.pca_normals_from_neighbors, static_argnums=3)(
             jnp.asarray(pts), jnp.asarray(idx), jnp.asarray(cnt), outward))
         got = tnrm.pca_normals_from_neighbors(_t(pts), _t(idx), _t(cnt), outward).numpy()
+        # the port sums the moments in the compiled program's order with its
+        # fused multiply-adds, so every normal is the JAX package's bits
         np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
-        ok = ~np.isnan(want).any(1)
-        # float32 covariances of near-planar patches: the normal of a nearly
-        # degenerate patch moves with the last bits, so hold the well-posed
-        # majority tightly and every normal loosely
-        err = np.abs(got[ok] - want[ok]).max(1)
-        assert np.median(err) < 1e-4 and (err < 1e-2).mean() > 0.97
+        assert (~np.isnan(want)).all(1).sum() > 500
+        np.testing.assert_array_equal(got, want)
     rng = np.random.default_rng(9)
     a = rng.normal(size=(200, 3, 3))
     cov = (a @ np.swapaxes(a, 1, 2)).astype(np.float32)
