@@ -1,0 +1,7 @@
+"""90th percentile of the window's request latencies in the traced run, ms."""
+
+import readers
+
+
+def read(run):
+    return readers.frame_ms(run.records, 90)
