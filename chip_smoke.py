@@ -357,13 +357,16 @@ def main() -> int:
         dense_gate_reference,
     )
     from model_matching_tpu_torch.ops.row_gather import row_gather
+    from model_matching_tpu_torch.utils import trace
 
     # ---- 2. build
     _phase("build")
     t0 = time.perf_counter()
     _build.load()
+    nvcc = [e.seconds for e in trace.snapshot().entries
+            if e.kind == "span" and e.name == "kernels.build"]
     print(f"build_seconds {time.perf_counter() - t0:.3f} "
-          f"(nvcc {_build.build_seconds})")
+          f"(nvcc {nvcc[-1] if nvcc else None})")
     print("\n".join(l for l in _build.build_log.splitlines()
                     if "Used" in l or "spill" in l or "Compiling entry" in l))
 
@@ -472,13 +475,12 @@ def main() -> int:
     print(f"warm-up run {time.perf_counter() - t0:.3f} s")
     gathers.stop()
     gates.stop()
-    dense_gate.launches = 0
-    row_gather.launches = 0
+    k_before = _kernel_launches()
     t0 = time.perf_counter()
     res = est.run(verbose=False)
     wall = time.perf_counter() - t0
-    launches = dense_gate.launches
-    gather_launches = row_gather.launches
+    n = _kernel_launches(k_before)
+    launches, gather_launches = n["dense_gate_launches"], n["row_gather_launches"]
     print(f"timed run {wall:.4f} s; best_index {res.best_index} best_lcp "
           f"{res.best_lcp:.6f}; bases {res.num_bases} hypotheses "
           f"{res.num_hypotheses}; dense_gate launches {launches}; row_gather "
@@ -537,7 +539,7 @@ def main() -> int:
         max_congruent=200, seed=3, device="cpu",
     )
     cpu = StocsEstimator(model, scene, cfg).run(verbose=False)
-    before = dense_gate.launches
+    before = _kernel_launches()["dense_gate_launches"]
     gpu = StocsEstimator(model.to(dev), scene.to(dev), cfg).run(verbose=False)
     pose_err = float(abs(cpu.best_world_transform - gpu.best_world_transform).max())
     # the scored pool: the ladder's leaders carry an exact LCP, the rest -1,
@@ -550,8 +552,8 @@ def main() -> int:
           f"{gpu.best_lcp:.7f}; pose max abs diff {pose_err:.3e}; "
           f"{int((cpu.poses.lcp >= 0).sum())} leaders, same on both: "
           f"{same_leaders}; poses.lcp max abs diff {lcp_err:.3e}; kernel "
-          f"launches {dense_gate.launches - before}")
-    if dense_gate.launches == before:
+          f"launches {_kernel_launches()['dense_gate_launches'] - before}")
+    if _kernel_launches()["dense_gate_launches"] == before:
         raise AssertionError("the CUDA run of the comparison never launched the kernel")
     if (gpu.best_index != cpu.best_index or abs(gpu.best_lcp - cpu.best_lcp) > 1e-5
             or pose_err > 1e-4 or not same_leaders or lcp_err > 1e-5
@@ -737,6 +739,16 @@ _VIEW_OPS = frozenset(("view", "_unsafe_view", "expand", "select", "slice",
                        "unsqueeze", "squeeze", "reshape", "as_strided", "t",
                        "transpose", "permute", "alias", "detach", "unbind",
                        "lift_fresh", "scalar_tensor"))
+
+
+def _kernel_launches(before=None):
+    """K1 and K2 launches (the `k1.launches` and `k2.launches` counters of
+    utils/trace.py), since the counts `before` if given."""
+    from model_matching_tpu_torch.utils import trace
+
+    now = {"dense_gate_launches": trace.total("k1.launches"),
+           "row_gather_launches": trace.total("k2.launches")}
+    return now if before is None else {k: v - before[k] for k, v in now.items()}
 
 
 def _launches(torch, fn):
@@ -1089,8 +1101,7 @@ def _files_phase(torch, dev, dense_gate, row_gather):
     scene_dir, cfg, _gt = write_synthetic_scene(root, obj)
     if cfg != get_preset("ycb").match:
         raise AssertionError("the scene was not written at the ycb preset's camera")
-    dense_gate.launches = 0
-    row_gather.launches = 0
+    k_before = _kernel_launches()
     t0 = time.perf_counter()
     if cli.main(["model-preprocess", obj, "--repo-path", root]) != 0:
         raise AssertionError("model-preprocess failed")
@@ -1099,8 +1110,7 @@ def _files_phase(torch, dev, dense_gate, row_gather):
     if cli.main(["stocs-single", scene_dir, obj, "--repo-path", root]) != 0:
         raise AssertionError("stocs-single failed")
     t_single = time.perf_counter() - t0
-    counts = {"dense_gate_launches": dense_gate.launches,
-              "row_gather_launches": row_gather.launches}
+    counts = _kernel_launches(k_before)
     print(f"files: model-preprocess {t_pre:.3f} s, stocs-single {t_single:.3f} s "
           f"(first runs, kernels built); launches {json.dumps(counts)}")
     if min(counts.values()) <= 0:
@@ -1266,14 +1276,12 @@ def _instance_phase(torch, dev, dense_gate, dense_gate_reference, row_gather):
         raise AssertionError("model-preprocess failed")
     log = _log_events()
     gathers, gates = _record_gathers(), _record_gates()
-    dense_gate.launches = 0
-    row_gather.launches = 0
+    k_before = _kernel_launches()
     t0 = time.perf_counter()
     rc = cli.main(["stocs-single", scene_dir, obj, "--repo-path", root,
                    "--cluster", "--heatmap"])
     t_single = time.perf_counter() - t0
-    counts = {"dense_gate_launches": dense_gate.launches,
-              "row_gather_launches": row_gather.launches}
+    counts = _kernel_launches(k_before)
     gathers.stop()
     gates.stop()
     log.stop()
@@ -1461,14 +1469,12 @@ def _sweep_phase(torch, dev, dense_gate, dense_gate_reference, row_gather):
     estimator.StocsEstimator.run_sweep = recording_sweep
     log = _log_events()
     try:
-        dense_gate.launches = 0
-        row_gather.launches = 0
+        k_before = _kernel_launches()
         t0 = time.perf_counter()
         if cli.main(base) != 0:
             raise AssertionError("the sweep command failed")
         t_full = time.perf_counter() - t0
-        counts = {"dense_gate_launches": dense_gate.launches,
-                  "row_gather_launches": row_gather.launches}
+        counts = _kernel_launches(k_before)
         full = log.last("stocs_sweep")
         with open(pose_file) as f:
             pose_text = f.read()
@@ -1610,13 +1616,11 @@ def _multi_phase(torch, dev, dense_gate, dense_gate_reference, row_gather):
         log = _log_events()
         if path == "class":
             gathers, gates = _record_gathers(), _record_gates()
-        dense_gate.launches = 0
-        row_gather.launches = 0
+        k_before = _kernel_launches()
         t0 = time.perf_counter()
         rc = cli.main(["stocs-multi", sdir, ",".join(objs), "--repo-path", src])
         wall = time.perf_counter() - t0
-        counts = {"dense_gate_launches": dense_gate.launches,
-                  "row_gather_launches": row_gather.launches}
+        counts = _kernel_launches(k_before)
         if path == "class":
             gathers.stop()
             gates.stop()
@@ -1754,12 +1758,10 @@ def _sharded_phase(torch, dev, dense_gate, dense_gate_reference, row_gather, mul
     kw = dict(chunk=2048, verbose=False)
     log = _log_events()
     gathers, gates = _record_gathers(), _record_gates()
-    dense_gate.launches = 0
-    row_gather.launches = 0
+    k_before = _kernel_launches()
     try:
         full = run_sweep_sharded(mesh, model, scene, cfg, 4096, **kw)
-        counts = {"dense_gate_launches": dense_gate.launches,
-                  "row_gather_launches": row_gather.launches}
+        counts = _kernel_launches(k_before)
     finally:
         gathers.stop()
         gates.stop()
@@ -1820,11 +1822,9 @@ def _sharded_phase(torch, dev, dense_gate, dense_gate_reference, row_gather, mul
     # the instance path on phase 8's edge scene: 256 bases over 8 ranks
     emodel, escene, emodel_ply = packs(os.path.join(_ROOT, "build", "chip_smoke_instance"),
                                        True)
-    dense_gate.launches = 0
-    row_gather.launches = 0
+    k_before = _kernel_launches()
     inst = run_sweep_sharded(mesh, emodel, escene, cfg, 256, chunk=256, verbose=False)
-    icounts = {"dense_gate_launches": dense_gate.launches,
-               "row_gather_launches": row_gather.launches}
+    icounts = _kernel_launches(k_before)
     ist = inst[4]
     print(f"sharded instance sweep, 256 bases over 8 ranks ({gpu}): {ist['seconds']:.3f} s, "
           f"{ist['bases_per_sec']:.1f} bases/s ({ist['hypotheses']} hypotheses, best_lcp "
@@ -2196,8 +2196,7 @@ def _packed_phase(torch, dev, dense_gate, dense_gate_reference, row_gather):
         return out
 
     est_mod._phase_sample_instance, est_mod._run_congruent = sample, cong
-    dense_gate.launches = 0
-    row_gather.launches = 0
+    k_before = _kernel_launches()
     try:
         t0 = time.perf_counter()
         rc = cli.main(["stocs-single", scene_dir, obj, "--repo-path", root,
@@ -2208,8 +2207,7 @@ def _packed_phase(torch, dev, dense_gate, dense_gate_reference, row_gather):
         gathers.stop()
         gates.stop()
         log.stop()
-    counts = {"dense_gate_launches": dense_gate.launches,
-              "row_gather_launches": row_gather.launches}
+    counts = _kernel_launches(k_before)
     if rc != 0:
         raise AssertionError("stocs-single --preset packed failed")
     run = log.last("stocs_run")
@@ -2482,8 +2480,7 @@ def _packed_sweep(torch, dev, dense_gate, dense_gate_reference, row_gather, pack
     log = _log_events()
     gathers, gates = _record_gathers(), _record_gates()
     clock = _phase_clock(torch)
-    dense_gate.launches = 0
-    row_gather.launches = 0
+    k_before = _kernel_launches()
     try:
         t0 = time.perf_counter()
         rc = cli.main(["stocs-single", scene_dir, obj, "--repo-path", root, "--preset",
@@ -2494,8 +2491,7 @@ def _packed_sweep(torch, dev, dense_gate, dense_gate_reference, row_gather, pack
         gathers.stop()
         gates.stop()
         log.stop()
-    counts = {"dense_gate_launches": dense_gate.launches,
-              "row_gather_launches": row_gather.launches}
+    counts = _kernel_launches(k_before)
     if rc != 0 or not os.path.exists(pose_file):
         raise AssertionError("the packed sweep failed")
     for w in log.warnings:
@@ -2557,8 +2553,7 @@ def _packed_block_mode(torch, dev, dense_gate, dense_gate_reference, row_gather,
 
     fmath.pow = power
     gathers, gates = _record_gathers(scene), _record_gates()
-    dense_gate.launches = 0
-    row_gather.launches = 0
+    k_before = _kernel_launches()
     try:
         est = est_mod.StocsEstimator(model, scene, cfg8)
         t0 = time.perf_counter()
@@ -2568,8 +2563,7 @@ def _packed_block_mode(torch, dev, dense_gate, dense_gate_reference, row_gather,
         fmath.pow = real_pow
         gathers.stop()
         gates.stop()
-    counts = {"dense_gate_launches": dense_gate.launches,
-              "row_gather_launches": row_gather.launches}
+    counts = _kernel_launches(k_before)
     top_exp = float(torch.stack(exps).max()) if exps else 0.0
     if min(counts.values()) <= 0 or top_exp < 2:
         raise AssertionError(f"block mode missed a kernel or never decayed twice in a "
@@ -2642,8 +2636,7 @@ def _linemod_phase(torch, dev, dense_gate, dense_gate_reference, row_gather):
         raise AssertionError("model-preprocess --preset linemod failed")
     t_pre = time.perf_counter() - t0
     gathers, gates = _record_gathers(), _record_gates()
-    dense_gate.launches = 0
-    row_gather.launches = 0
+    k_before = _kernel_launches()
     try:
         t0 = time.perf_counter()
         rc = cli.main(["stocs-single", scene_dir, obj, "--repo-path", root,
@@ -2652,8 +2645,7 @@ def _linemod_phase(torch, dev, dense_gate, dense_gate_reference, row_gather):
     finally:
         gathers.stop()
         gates.stop()
-    counts = {"dense_gate_launches": dense_gate.launches,
-              "row_gather_launches": row_gather.launches}
+    counts = _kernel_launches(k_before)
     if rc != 0 or min(counts.values()) <= 0:
         raise AssertionError(f"stocs-single --preset linemod failed or missed a kernel: "
                              f"{counts}")

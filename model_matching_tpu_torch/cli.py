@@ -22,11 +22,16 @@ file, as the JAX package's command does: `--cluster`, `--heatmap` and
 cards, times the world size under torch.distributed) the sweep shards over
 them (parallel/sharding.py), its chunk rounded up to a multiple of the rank
 count. `--profile DIR` writes a torch.profiler Chrome trace of the run
-under DIR. `stocs-batch` runs `stocs-single` once per
+under DIR, with the port's spans (utils/trace.py) as `mm.<span>` ranges
+over the kernels. `stocs-batch` runs `stocs-single` once per
 object; `stocs-multi` matches every object against one shared scene
 (multi.py) and writes each object's pose file; `serve` answers
 '<scene_path> <object>' lines with 'OK <12 floats> <lcp>' or 'ERR
-<reason>'; `eval` prints the ADD / ADD-S JSON document of pose files
+<reason>', and logs a `serve_request` event a request (its seconds,
+`phases_ms`: the milliseconds of its top-level spans and their children by
+name, its `host_reads`, `k1_launches` and `k2_launches`, and whether it
+loaded a model, loaded the kernels or built them); `eval` prints the ADD /
+ADD-S JSON document of pose files
 against ground truth (pose files, or a BOP scene_gt.json). `--device`
 picks the device (default cuda; without a card the commands fail unless
 given `--device cpu`). `main(argv)` runs in-process; it first joins a
@@ -208,6 +213,10 @@ def _profiled(out_dir, dev, fn):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from .utils import trace
+
+    trace.annotate(True)
+
     act = ProfilerActivity.CUDA if dev.type == "cuda" else ProfilerActivity.CPU
     prof = profile(activities=[act])
     try:
@@ -217,6 +226,7 @@ def _profiled(out_dir, dev, fn):
                 torch.cuda.synchronize(dev)
         return out
     finally:
+        trace.annotate(False)
         os.makedirs(out_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(
             out_dir, f"stocs_single.{os.getpid()}.{time.time_ns()}.pt.trace.json"))
@@ -260,6 +270,7 @@ def cmd_stocs_single(argv):
     from .io import ply
     from .model import load_model_pack
     from .scene import load_scene
+    from .utils import trace
 
     p = argparse.ArgumentParser(prog="stocs-single")
     p.add_argument("scene_path")
@@ -328,6 +339,7 @@ def cmd_stocs_single(argv):
         return 1
     print("############# LOADING OBJECT MAPS ################")
     model = load_model_pack(model_ply, table_path, cfg.max_model_points, device=dev)
+    trace.count("host_reads")
     print(f"|M| = {int(model.count())}, pairs = {model.table.num_pairs}")
     print("############# LOADING OBJECT COMPLETE ################")
 
@@ -390,6 +402,7 @@ def cmd_stocs_single(argv):
         # seg_mask_<n>.png debug artifacts, one per base that has a segment
         from .io.image import write_u8
 
+        trace.count("host_reads")
         masks = est.seg_masks.cpu().numpy()
         for i in range(1, masks.shape[0]):
             if masks[i].any():
@@ -541,14 +554,19 @@ def cmd_serve(argv):
     the JAX package's shared shape floors as its serve loads them, so an OK
     line carries the pose the estimator gives on a standardized pack (which
     may differ from the stocs-single file in the last digits). Each request
-    logs a `serve_request` event with its seconds and whether it loaded a
-    model, loaded the kernels or built them."""
+    logs a `serve_request` event with its seconds, the milliseconds of its
+    top-level spans and their children (`phases_ms`), its host reads and
+    K1 / K2 launches, and whether it loaded a model, loaded the kernels or
+    built them (utils/trace.py)."""
     from .config import get_preset
     from .estimator import StocsEstimator
     from .model import load_model_pack
-    from .ops import _build
     from .scene import load_scene
+    from .utils import trace
     from .utils.log import log_event
+
+    tallied = ("host_reads", "k1.launches", "k2.launches", "kernels.loads",
+               "kernels.builds")
 
     p = argparse.ArgumentParser(prog="serve")
     _add_common(p)
@@ -575,42 +593,49 @@ def cmd_serve(argv):
             continue
         scene_path, obj = parts
         t0 = time.perf_counter()
-        loads, builds = _build.loads, _build.builds
+        before = {k: trace.total(k) for k in tallied}
+        since = trace.mark()
         new_model = obj not in models
         answer = "ERR"
-        try:
-            if new_model:
-                _s, root = _model_dirs(args, obj)
-                models[obj] = load_model_pack(
-                    os.path.join(root, "model_search.ply"),
-                    os.path.join(root, "ppf_table.npz"),
-                    cfg.max_model_points, standardize=True, device=dev,
+        with trace.request() as rid:
+            try:
+                if new_model:
+                    _s, root = _model_dirs(args, obj)
+                    models[obj] = load_model_pack(
+                        os.path.join(root, "model_search.ply"),
+                        os.path.join(root, "ppf_table.npz"),
+                        cfg.max_model_points, standardize=True, device=dev,
+                    )
+                edge = os.path.join(scene_path, "probability_maps", "edge.png")
+                scene = load_scene(
+                    os.path.join(scene_path, "rgb.png"),
+                    os.path.join(scene_path, "depth.png"),
+                    os.path.join(scene_path, "probability_maps", f"{obj}.png"),
+                    edge if os.path.exists(edge) else None,
+                    cfg, device=dev,
                 )
-            edge = os.path.join(scene_path, "probability_maps", "edge.png")
-            scene = load_scene(
-                os.path.join(scene_path, "rgb.png"),
-                os.path.join(scene_path, "depth.png"),
-                os.path.join(scene_path, "probability_maps", f"{obj}.png"),
-                edge if os.path.exists(edge) else None,
-                cfg, device=dev,
-            )
-            result = StocsEstimator(models[obj], scene, cfg).run(verbose=False)
-            if result.best_index < 0:
-                print("ERR no pose found", flush=True)
-            else:
-                answer = "OK"
-                print(f"OK {_pose_row(result.best_world_transform)} "
-                      f"{result.best_lcp:g}", flush=True)
-        except Exception as e:  # answer and keep serving
-            from .utils.log import get_logger
+                result = StocsEstimator(models[obj], scene, cfg).run(verbose=False)
+                if result.best_index < 0:
+                    print("ERR no pose found", flush=True)
+                else:
+                    answer = "OK"
+                    print(f"OK {_pose_row(result.best_world_transform)} "
+                          f"{result.best_lcp:g}", flush=True)
+            except Exception as e:  # answer and keep serving
+                from .utils.log import get_logger
 
-            get_logger().exception("serve: request %r failed", line.strip())
-            print(f"ERR {type(e).__name__}: {e}", flush=True)
+                get_logger().exception("serve: request %r failed", line.strip())
+                print(f"ERR {type(e).__name__}: {e}", flush=True)
+        n = {k: trace.total(k) - before[k] for k in tallied}
+        mine = [e for e in trace.snapshot(since).entries if e.request == rid]
         log_event("serve_request", scene=scene_path, object=obj, answer=answer,
                   seconds=time.perf_counter() - t0,
+                  phases_ms={k: round(v, 3) for k, v in trace.phases_ms(mine).items()},
+                  host_reads=n["host_reads"], k1_launches=n["k1.launches"],
+                  k2_launches=n["k2.launches"],
                   model_loaded=new_model and obj in models,
-                  kernels_loaded=_build.loads > loads,
-                  kernels_built=_build.builds > builds)
+                  kernels_loaded=n["kernels.loads"] > 0,
+                  kernels_built=n["kernels.builds"] > 0)
     return 0
 
 

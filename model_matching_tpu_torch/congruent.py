@@ -37,6 +37,7 @@ from .ops import fmath
 from .ops.dense_gate import dense_gate
 from .ops.fp import div_const, dot3, f32, fma, sqrt_rn
 from .ops.ppf import ppf_bins
+from .utils import trace
 from .ppf_table import (
     PPFTable,
     _mix32,
@@ -214,6 +215,7 @@ def d2_test_implied(model_pos, cfg: MatchConfig) -> bool:
     M, 3] positions (multi.py) must hold for every object."""
     if cfg.congruent_distance_mode != "cell":
         return False
+    trace.count("host_reads")
     mp = np.asarray(model_pos.detach().cpu().numpy(), dtype=np.float32)
     return all(_d2_implied_host(m, cfg) for m in mp.reshape((-1,) + mp.shape[-2:]))
 
@@ -303,11 +305,13 @@ def extract_congruent_sets(
         loads = torch.maximum(p_total, q_total)
         order = torch.sort(loads, stable=True).indices
         gmax = loads[order].view(b // g, g).amax(1)
+        trace.count("host_reads")
         host = torch.cat([order, gmax.to(order.dtype)]).cpu().numpy()
         host_order, host_gmax = host[:b], host[b:]
         group_tier = np.searchsorted(np.asarray(caps), host_gmax, side="left")
         tier_of[host_order] = np.repeat(group_tier, g)
     elif tiers:
+        trace.count("host_reads")
         host_load = torch.maximum(p_total, q_total).cpu().numpy()
         tier_of[:] = np.searchsorted(np.asarray(caps), host_load, side="left")
 

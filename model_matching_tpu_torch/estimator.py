@@ -13,9 +13,10 @@ with its checkpoints, ``cluster_poses``):
   phase 4  weighted-LCP scores      (scoring.py, coarse-to-fine ladder)
   then     ICP refinement of the winner (icp.py)
 
-Every phase runs on the device of the packs (nothing moves them), the
-wall time of each is reported in ``timings``, and host reads are grouped
-into one transfer per decision point. The instance path leaves its
+Every phase runs on the device of the packs (nothing moves them), each is
+a span of ``utils/trace`` (``estimate.*``; the first four end on a device
+synchronize) whose wall time is reported in ``timings``, and host reads are
+grouped into one transfer per decision point. The instance path leaves its
 decayed prior on the estimator, and scoring reads it.
 """
 
@@ -37,6 +38,7 @@ from .model import ModelPack, build_pair_ep
 from .ops import fit as fit_ops
 from .scene import ScenePack
 from .types import PoseCandidates
+from .utils import trace
 from .utils.log import log_event, warn
 
 
@@ -53,15 +55,11 @@ class StocsResult:
     stats: dict
 
 
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def _to_host(*tensors):
     """One device->host transfer for a group of values: each is flattened
     into one float64 vector (exact for int32 and float32) and split back.
-    Returns numpy arrays in the input shapes."""
+    Returns numpy arrays in the input shapes. Counts one `host_reads`."""
+    trace.count("host_reads")
     flat = torch.cat([t.reshape(-1).to(torch.float64) for t in tensors]).cpu().numpy()
     out, i = [], 0
     for t in tensors:
@@ -416,45 +414,46 @@ def finish_sweep_pool(pool_s, pool_t, pool_w, model: ModelPack,
     """Tail of a sweep: pool argmax, ICP polish of the winner, greedy
     clustering of the pooled hypotheses (pruned against the raw pool best:
     an ICP-refined best is no member of the pool and would over-prune),
-    stats and logging. Three transfers: argmax group, refine group,
-    cluster group.
+    stats and logging, in the span `sweep.finish`. Three transfers: argmax
+    group, refine group, cluster group.
 
     Returns (best_lcp, best_world_transform, clustered_transforms,
     clustered_lcp, stats)."""
-    bi = torch.argmax(pool_s)
-    h_best, h_w, h_sc, h_mc = _to_host(pool_s[bi], pool_w[bi], scene.centroid,
-                                       model.centroid)
-    best_lcp = float(h_best)
-    best_w = h_w.astype(np.float32)
-    raw_best = best_lcp
+    with trace.span("sweep.finish"):
+        bi = torch.argmax(pool_s)
+        h_best, h_w, h_sc, h_mc = _to_host(pool_s[bi], pool_w[bi], scene.centroid,
+                                           model.centroid)
+        best_lcp = float(h_best)
+        best_w = h_w.astype(np.float32)
+        raw_best = best_lcp
 
-    if cfg.refine_best_pose and best_lcp > 0:
-        refined, new_lcp = _phase_refine(pool_t[bi], model, scene, class_prob, cfg)
-        r_refined, r_lcp = _to_host(refined, new_lcp)
-        if float(r_lcp) >= best_lcp:
-            best_w = _world_of(r_refined.astype(np.float32), h_sc, h_mc)
-            best_lcp = float(r_lcp)
-    elapsed = time.perf_counter() - t_start
+        if cfg.refine_best_pose and best_lcp > 0:
+            refined, new_lcp = _phase_refine(pool_t[bi], model, scene, class_prob, cfg)
+            r_refined, r_lcp = _to_host(refined, new_lcp)
+            if float(r_lcp) >= best_lcp:
+                best_w = _world_of(r_refined.astype(np.float32), h_sc, h_mc)
+                best_lcp = float(r_lcp)
+        elapsed = time.perf_counter() - t_start
 
-    cl_w, cl_s = _cluster_pool(pool_w, pool_s, pool_s > 0, raw_best, cfg)
-    stats = {
-        "total_bases": total_bases,
-        "hypotheses": n_hyp_total,
-        "seconds": elapsed,
-        "bases_per_sec": total_bases / elapsed,
-        "hypotheses_per_sec": n_hyp_total / elapsed if elapsed else 0.0,
-        # the pool's own best, before the ICP polish: the first cluster
-        "pool_best_lcp": raw_best,
-        **(extra_stats or {}),
-    }
-    log_event(event, best_lcp=best_lcp, clusters=len(cl_s), **stats)
-    if verbose:
-        print(
-            f"sweep: {total_bases} bases -> {n_hyp_total} hypotheses in "
-            f"{elapsed:.1f}s ({stats['bases_per_sec']:.0f} bases/s), "
-            f"best lcp {best_lcp:.3f}, {len(cl_s)} clusters"
-        )
-    return best_lcp, best_w, cl_w, cl_s, stats
+        cl_w, cl_s = _cluster_pool(pool_w, pool_s, pool_s > 0, raw_best, cfg)
+        stats = {
+            "total_bases": total_bases,
+            "hypotheses": n_hyp_total,
+            "seconds": elapsed,
+            "bases_per_sec": total_bases / elapsed,
+            "hypotheses_per_sec": n_hyp_total / elapsed if elapsed else 0.0,
+            # the pool's own best, before the ICP polish: the first cluster
+            "pool_best_lcp": raw_best,
+            **(extra_stats or {}),
+        }
+        log_event(event, best_lcp=best_lcp, clusters=len(cl_s), **stats)
+        if verbose:
+            print(
+                f"sweep: {total_bases} bases -> {n_hyp_total} hypotheses in "
+                f"{elapsed:.1f}s ({stats['bases_per_sec']:.0f} bases/s), "
+                f"best lcp {best_lcp:.3f}, {len(cl_s)} clusters"
+            )
+        return best_lcp, best_w, cl_w, cl_s, stats
 
 
 class StocsEstimator:
@@ -463,23 +462,24 @@ class StocsEstimator:
     flood-fill segments through a sequential loop (instance.py)."""
 
     def __init__(self, model: ModelPack, scene: ScenePack, cfg: MatchConfig):
-        # STOCS learns nothing and its float work is small, so exactness
-        # wins: matrix products and score sums must run in true fp32, not
-        # TF32 (which keeps ~3 decimal digits and would move distance,
-        # normal and cone gate decisions).
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        self.model = model
-        self.scene = scene
-        self.cfg = cfg
-        # mutable class-probability state: the instance path decays it,
-        # and scoring reads the decayed values
-        self.class_prob = scene.class_prob
-        self.seg_masks = None
-        self.last_poses = None
-        self._exists_bits = None
-        # fixed per model and config: one host read here, none per run
-        self._d2_implied = congruent.d2_test_implied(model.pos, cfg)
+        with trace.span("estimate.setup"):
+            # STOCS learns nothing and its float work is small, so exactness
+            # wins: matrix products and score sums must run in true fp32,
+            # not TF32 (which keeps ~3 decimal digits and would move
+            # distance, normal and cone gate decisions).
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            self.model = model
+            self.scene = scene
+            self.cfg = cfg
+            # mutable class-probability state: the instance path decays
+            # it, and scoring reads the decayed values
+            self.class_prob = scene.class_prob
+            self.seg_masks = None
+            self.last_poses = None
+            self._exists_bits = None
+            # fixed per model and config: one host read here, none per run
+            self._d2_implied = congruent.d2_test_implied(model.pos, cfg)
 
     def _score_prob(self):
         """None (read the weight baked into the field rows / payload) while
@@ -507,76 +507,82 @@ class StocsEstimator:
 
     def run(self, seed: Optional[int] = None, coarse_to_fine: bool = True,
             verbose: bool = True) -> StocsResult:
+        """One match: the four phases, the host read of their outcome and
+        the ICP polish, in the span `estimate.run`; `timings` holds the
+        seconds of its children `estimate.sample` (sample_bases),
+        `estimate.congruent` (congruent_sets), `estimate.fit` (rigid_fit),
+        `estimate.score` (scoring) and `estimate.icp` (icp_refine)."""
+        with trace.span("estimate.run"):
+            return self._run(seed, coarse_to_fine, verbose)
+
+    def _run(self, seed, coarse_to_fine, verbose) -> StocsResult:
         cfg = self.cfg
         dev = self.scene.pos.device
         key = rng.PRNGKey(cfg.seed if seed is None else seed)
         k_sample, k_cong = rng.split(key)
         timings = {}
 
-        t0 = time.perf_counter()
-        self.seg_masks = None
-        unconv = torch.zeros((), dtype=torch.int32, device=dev)
-        if self.scene.has_edge:
-            inst = _phase_sample_instance(
-                k_sample, self.model.table, self.scene, self.class_prob,
-                cfg, cfg.number_of_bases,
-            )
-            # joins the one transfer below
-            unconv = (~inst.fill_converged).sum(dtype=torch.int32)
-            bases = sampling.SampledBases(
-                inst.indices, inst.invariant1, inst.invariant2, inst.valid
-            )
-            # the dispersion decay persists into scoring
-            self.class_prob = inst.class_prob
-            self.seg_masks = inst.seg_masks
-        else:
-            bits = self.exists_bits() if cfg.number_of_bases >= 512 else None
-            bases = _phase_sample(
-                k_sample, self.model.table, self.scene.pos, self.scene.normal,
-                self.class_prob, self.scene.valid, cfg, cfg.number_of_bases,
-                bits,
-            )
-        _sync(dev)
-        timings["sample_bases"] = time.perf_counter() - t0
+        with trace.span("estimate.sample", sync=dev) as sp:
+            self.seg_masks = None
+            unconv = torch.zeros((), dtype=torch.int32, device=dev)
+            if self.scene.has_edge:
+                inst = _phase_sample_instance(
+                    k_sample, self.model.table, self.scene, self.class_prob,
+                    cfg, cfg.number_of_bases,
+                )
+                # joins the one transfer below
+                unconv = (~inst.fill_converged).sum(dtype=torch.int32)
+                bases = sampling.SampledBases(
+                    inst.indices, inst.invariant1, inst.invariant2, inst.valid
+                )
+                # the dispersion decay persists into scoring
+                self.class_prob = inst.class_prob
+                self.seg_masks = inst.seg_masks
+            else:
+                bits = self.exists_bits() if cfg.number_of_bases >= 512 else None
+                bases = _phase_sample(
+                    k_sample, self.model.table, self.scene.pos, self.scene.normal,
+                    self.class_prob, self.scene.valid, cfg, cfg.number_of_bases,
+                    bits,
+                )
+        timings["sample_bases"] = sp.seconds
 
-        t0 = time.perf_counter()
-        sets = _run_congruent(k_cong, self.model, self.scene, bases, cfg,
-                              self._d2_implied)
-        _sync(dev)
-        timings["congruent_sets"] = time.perf_counter() - t0
+        with trace.span("estimate.congruent", sync=dev) as sp:
+            sets = _run_congruent(k_cong, self.model, self.scene, bases, cfg,
+                                  self._d2_implied)
+        timings["congruent_sets"] = sp.seconds
 
-        t0 = time.perf_counter()
-        cap = cfg.score_compact_cap
-        fit_cap = cap if coarse_to_fine else 0
-        poses, n_slot_valid = _phase_fit(
-            self.scene.pos, _pair_ep_of(self.model), self.scene.centroid,
-            self.model.centroid, bases, sets, compact_cap=fit_cap,
-        )
-        _sync(dev)
-        timings["rigid_fit"] = time.perf_counter() - t0
+        with trace.span("estimate.fit", sync=dev) as sp:
+            cap = cfg.score_compact_cap
+            fit_cap = cap if coarse_to_fine else 0
+            poses, n_slot_valid = _phase_fit(
+                self.scene.pos, _pair_ep_of(self.model), self.scene.centroid,
+                self.model.centroid, bases, sets, compact_cap=fit_cap,
+            )
+        timings["rigid_fit"] = sp.seconds
         slots = bases.valid.shape[0] * cfg.maximum_congruent_sets
 
-        t0 = time.perf_counter()
-        pre_n = (torch.clamp(n_slot_valid, max=cap)
-                 if (fit_cap and slots > cap) else None)
-        scores, idx, best = _phase_score(
-            poses, self.model, self.scene, self._score_prob(), cfg,
-            coarse_to_fine, precompacted_count=pre_n,
-        )
-        _sync(dev)
-        timings["scoring"] = time.perf_counter() - t0
+        with trace.span("estimate.score", sync=dev) as sp:
+            pre_n = (torch.clamp(n_slot_valid, max=cap)
+                     if (fit_cap and slots > cap) else None)
+            scores, idx, best = _phase_score(
+                poses, self.model, self.scene, self._score_prob(), cfg,
+                coarse_to_fine, precompacted_count=pre_n,
+            )
+        timings["scoring"] = sp.seconds
 
-        poses = dataclasses.replace(poses, lcp=scores)
-        # one transfer for every host-side scalar and the winner rows
-        safe_i = torch.clamp(idx, min=0).long()
-        (h_idx, h_best, h_nb, h_nh, h_nsv, h_pmax, h_short, h_tot, best_t,
-         best_w, h_unconv) = _to_host(
-            idx, best, bases.valid.sum(dtype=torch.int32),
-            poses.valid.sum(dtype=torch.int32), n_slot_valid,
-            sets.pair_counts.max(), congruent.selection_shortfall(sets, cfg),
-            sets.total_found.sum(), poses.transform[safe_i],
-            poses.world_transform[safe_i], unconv,
-        )
+        with trace.span("estimate.read"):
+            poses = dataclasses.replace(poses, lcp=scores)
+            # one transfer for every host-side scalar and the winner rows
+            safe_i = torch.clamp(idx, min=0).long()
+            (h_idx, h_best, h_nb, h_nh, h_nsv, h_pmax, h_short, h_tot, best_t,
+             best_w, h_unconv) = _to_host(
+                idx, best, bases.valid.sum(dtype=torch.int32),
+                poses.valid.sum(dtype=torch.int32), n_slot_valid,
+                sets.pair_counts.max(), congruent.selection_shortfall(sets, cfg),
+                sets.total_found.sum(), poses.transform[safe_i],
+                poses.world_transform[safe_i], unconv,
+            )
         n_bases, n_hyp, n_slot_valid = int(h_nb), int(h_nh), int(h_nsv)
         pair_max, shortfall, total_sets = int(h_pmax), int(h_short), int(h_tot)
         n_unconv = int(h_unconv)
@@ -628,15 +634,15 @@ class StocsEstimator:
 
         # point-to-plane ICP polish of the winner, kept when it scores >= raw
         if best_index >= 0 and cfg.refine_best_pose:
-            t0 = time.perf_counter()
-            refined, new_lcp = _phase_refine(
-                torch.from_numpy(best_t).to(dev), self.model, self.scene,
-                self._score_prob(), cfg,
-            )
-            r_refined, r_lcp, r_sc, r_mc = _to_host(
-                refined, new_lcp, self.scene.centroid, self.model.centroid)
+            with trace.span("estimate.icp", timed=True) as sp:
+                refined, new_lcp = _phase_refine(
+                    torch.from_numpy(best_t).to(dev), self.model, self.scene,
+                    self._score_prob(), cfg,
+                )
+                r_refined, r_lcp, r_sc, r_mc = _to_host(
+                    refined, new_lcp, self.scene.centroid, self.model.centroid)
             new_lcp = float(r_lcp)
-            timings["icp_refine"] = time.perf_counter() - t0
+            timings["icp_refine"] = sp.seconds
             if new_lcp >= best_lcp:
                 best_t = r_refined.astype(np.float32)
                 best_w = _world_of(best_t, r_sc, r_mc)
@@ -709,7 +715,17 @@ class StocsEstimator:
         stats["next_chunk"].
 
         The per-chunk counters stay on the device; the host reads them
-        once after the loop, and once per checkpoint."""
+        once after the loop, and once per checkpoint.
+
+        Spans: `sweep.run` around the call, `sweep.chunk` around each
+        chunk, `sweep.finish` around the tail (finish_sweep_pool)."""
+        with trace.span("sweep.run"):
+            return self._run_sweep(total_bases, chunk, keep_per_chunk, seed, verbose,
+                                   checkpoint_path, checkpoint_every,
+                                   stop_after_chunks)
+
+    def _run_sweep(self, total_bases, chunk, keep_per_chunk, seed, verbose,
+                   checkpoint_path, checkpoint_every, stop_after_chunks):
         cfg = dataclasses.replace(self.cfg, number_of_bases=chunk)
         dev = self.scene.pos.device
         if keep_per_chunk is None:
@@ -798,64 +814,65 @@ class StocsEstimator:
         slots = chunk * cfg.maximum_congruent_sets
         stopped_at = None
         for ci in range(start_chunk, n_chunks):
-            key = rng.fold_in(key0, ci)
-            k_sample, k_cong = rng.split(key)
-            if use_instance:
-                inst = _phase_sample_instance(
-                    k_sample, self.model.table, self.scene, self.class_prob,
-                    cfg, chunk,
+            with trace.span("sweep.chunk"):
+                key = rng.fold_in(key0, ci)
+                k_sample, k_cong = rng.split(key)
+                if use_instance:
+                    inst = _phase_sample_instance(
+                        k_sample, self.model.table, self.scene, self.class_prob,
+                        cfg, chunk,
+                    )
+                    bases = sampling.SampledBases(
+                        inst.indices, inst.invariant1, inst.invariant2, inst.valid
+                    )
+                    # thread the decay: the next chunk samples (and this chunk
+                    # scores) under the prior every previous base has decayed
+                    self.class_prob = inst.class_prob
+                    unconverged.append((~inst.fill_converged).sum(dtype=torch.int32))
+                    del inst
+                else:
+                    bases = _phase_sample(
+                        k_sample, self.model.table, self.scene.pos,
+                        self.scene.normal, self.class_prob, self.scene.valid,
+                        cfg, chunk, bits,
+                    )
+                sets = _run_congruent(k_cong, self.model, self.scene, bases, cfg,
+                                      self._d2_implied)
+                poses, n_slot_valid = _phase_fit(
+                    self.scene.pos, _pair_ep_of(self.model),
+                    self.scene.centroid, self.model.centroid, bases, sets,
+                    compact_cap=cap,
                 )
-                bases = sampling.SampledBases(
-                    inst.indices, inst.invariant1, inst.invariant2, inst.valid
+                pre_n = (torch.clamp(n_slot_valid, max=cap)
+                         if (cap and slots > cap) else None)
+                scores, _i, _b = _phase_score(
+                    poses, self.model, self.scene, self._score_prob(), cfg, True,
+                    precompacted_count=pre_n,
                 )
-                # thread the decay: the next chunk samples (and this chunk
-                # scores) under the prior every previous base has decayed
-                self.class_prob = inst.class_prob
-                unconverged.append((~inst.fill_converged).sum(dtype=torch.int32))
-                del inst
-            else:
-                bases = _phase_sample(
-                    k_sample, self.model.table, self.scene.pos,
-                    self.scene.normal, self.class_prob, self.scene.valid,
-                    cfg, chunk, bits,
-                )
-            sets = _run_congruent(k_cong, self.model, self.scene, bases, cfg,
-                                  self._d2_implied)
-            poses, n_slot_valid = _phase_fit(
-                self.scene.pos, _pair_ep_of(self.model),
-                self.scene.centroid, self.model.centroid, bases, sets,
-                compact_cap=cap,
-            )
-            pre_n = (torch.clamp(n_slot_valid, max=cap)
-                     if (cap and slots > cap) else None)
-            scores, _i, _b = _phase_score(
-                poses, self.model, self.scene, self._score_prob(), cfg, True,
-                precompacted_count=pre_n,
-            )
-            kp = keep_per_chunk or scores.shape[0]
-            # values descending, ties by ascending index, on every device
-            top, idx = scoring._top_k(scores, min(kp, scores.shape[0]))
-            pool_s.append(top)
-            pool_t.append(poses.transform[idx])
-            pool_w.append(poses.world_transform[idx])
-            # chunk_valid = fit-valid (the hypotheses stat);
-            # chunk_slot_valid = congruent-valid before the fit-time
-            # compaction (the overflow warning)
-            chunk_valid.append(poses.valid.sum(dtype=torch.int32))
-            chunk_slot_valid.append(n_slot_valid)
-            pair_maxes.append(sets.pair_counts.max())
-            shortfalls.append(congruent.selection_shortfall(sets, cfg))
-            done_this_call = ci + 1 - start_chunk
-            if (stop_after_chunks is not None
-                    and done_this_call >= stop_after_chunks
-                    and ci + 1 < n_chunks):
-                stopped_at = ci + 1
-                if checkpoint_path:
+                kp = keep_per_chunk or scores.shape[0]
+                # values descending, ties by ascending index, on every device
+                top, idx = scoring._top_k(scores, min(kp, scores.shape[0]))
+                pool_s.append(top)
+                pool_t.append(poses.transform[idx])
+                pool_w.append(poses.world_transform[idx])
+                # chunk_valid = fit-valid (the hypotheses stat);
+                # chunk_slot_valid = congruent-valid before the fit-time
+                # compaction (the overflow warning)
+                chunk_valid.append(poses.valid.sum(dtype=torch.int32))
+                chunk_slot_valid.append(n_slot_valid)
+                pair_maxes.append(sets.pair_counts.max())
+                shortfalls.append(congruent.selection_shortfall(sets, cfg))
+                done_this_call = ci + 1 - start_chunk
+                if (stop_after_chunks is not None
+                        and done_this_call >= stop_after_chunks
+                        and ci + 1 < n_chunks):
+                    stopped_at = ci + 1
+                    if checkpoint_path:
+                        save_ckpt(ci + 1)
+                    break
+                if (checkpoint_path and ci + 1 < n_chunks
+                        and done_this_call % max(1, checkpoint_every) == 0):
                     save_ckpt(ci + 1)
-                break
-            if (checkpoint_path and ci + 1 < n_chunks
-                    and done_this_call % max(1, checkpoint_every) == 0):
-                save_ckpt(ci + 1)
         completed = stopped_at is None
         # one transfer for the loop's deferred device-side counters
         h_unconv, h_nvs, h_slvs, h_pmx, h_short = _to_host(

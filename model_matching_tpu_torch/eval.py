@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .utils import trace
 from .utils.device import require
 
 
@@ -125,6 +126,7 @@ def evaluate_poses(est: np.ndarray, gt: np.ndarray, model_pos,
         # [E, G] metric matrices, the minimum over the GT instances
         add = add_metric(e[:, None], g[None, :], mp).amin(1)
         adds = adds_metric(e[:, None], g[None, :], mp).amin(1)
+    trace.count("host_reads", 2)
     add, adds = (a.cpu().numpy() for a in (add, adds))
     thr = threshold_fraction * dia
     return {

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from .ops.fp import sqrt_rn
+from .utils import trace
 
 
 def _dilate8(mask):
@@ -125,6 +126,7 @@ def flood_fill(seed_rc, edge_free, max_pixel_distance, max_iters: int = 512,
         iters = torch.zeros(k, dtype=torch.int32, device=mask.device)
         while True:
             active = changed & (iters < max_iters)
+            trace.count("host_reads")
             if not bool(active.any()):                   # host read
                 break
             new = torch.where(active[:, None, None], sweep(mask), mask)

@@ -29,6 +29,7 @@ from . import flood, rng, sampling
 from .ops import fmath, invariants
 from .ops.fp import sqrt_rn
 from .ppf_table import PPFTable
+from .utils import trace
 
 
 class InstanceSamples(NamedTuple):
@@ -144,12 +145,14 @@ def sample_instance_bases_stepwise(
         cached_id = seg_buffer[seed_rc[0, 0].long(), seed_rc[0, 1].long()]
 
         def fresh():
+            trace.count("instance.flood_fills")
             m, conv = flood.flood_fill(
                 seed_rc, edge_free, max_pix_dist, max_iters=flood_max_iters,
                 fixed_sweeps=flood_sweeps, return_converged=True)
             return m[0], conv[0]
 
         if cache_branch == "read":
+            trace.count("host_reads")
             hit = int(cached_id)                             # host read
             if hit:
                 seg_mask, fill_ok = masks[hit], true
@@ -292,6 +295,7 @@ def sample_instance_bases_blocked(
         pix_d = _pixel_distance(pixel, seed_rc)
         max_pix_dist = torch.where(probs > 0, pix_d, 0.0).amax(dim=1)
 
+        trace.count("instance.flood_fills", k_block)
         masks, fill_ok = flood.flood_fill(
             seed_rc, edge_free, max_pix_dist, max_iters=flood_max_iters,
             fixed_sweeps=flood_sweeps, return_converged=True)   # [K, H, W]

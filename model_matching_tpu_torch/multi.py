@@ -29,6 +29,7 @@ from .model import ModelPack, build_pair_ep
 from .ops import fit as fit_ops
 from .ppf_table import resize_table
 from .scene import ScenePack
+from .utils import trace
 from .utils.log import warn
 
 
@@ -143,14 +144,24 @@ def match_all_objects(models: Sequence[ModelPack], scene: ScenePack, probs,
     bases marked invalid), are split into D contiguous blocks; each rank
     matches its block on its own device, the results are gathered
     rank-major and the padding dropped. The keys stay fold_in(PRNGKey(seed),
-    o), so the result equals the one without a mesh bit for bit."""
-    aligned = align_models(models)
+    o), so the result equals the one without a mesh bit for bit.
+
+    Spans: `multi.match` around the call, with `multi.align` (align_models
+    and the distance-test check on the aligned packs), one `multi.object`
+    an object slot and `multi.read` (the one transfer and its checks)."""
+    with trace.span("multi.match"):
+        return _match_all(models, scene, probs, cfg, seed, mesh)
+
+
+def _match_all(models, scene, probs, cfg, seed, mesh):
+    with trace.span("multi.align"):
+        aligned = align_models(models)
+        d2 = congruent.d2_test_implied(torch.stack([m.pos for m in aligned]), cfg)
     dev = scene.pos.device
     key = rng.PRNGKey(seed)
     n_obj = len(models)
     okeys = [rng.fold_in(key, o) for o in range(n_obj)]
     probs = torch.as_tensor(probs, dtype=torch.float32).to(dev)
-    d2 = congruent.d2_test_implied(torch.stack([m.pos for m in aligned]), cfg)
     sampled = {}
 
     def sample(o):
@@ -166,20 +177,21 @@ def match_all_objects(models: Sequence[ModelPack], scene: ScenePack, probs,
         """Object slot o on the device of `model` and `sc`: (best, pose,
         valid count, unconverged fills); a slot past the last object is a
         zero-probability replica of it."""
-        d = sc.pos.device
-        real = o < n_obj
-        last = min(o, n_obj - 1)
-        zero = torch.zeros((), dtype=torch.int32, device=d)
-        prior = probs[o].to(d) if real else torch.zeros_like(probs[0], device=d)
-        if not scene.has_edge:
-            return _match_one(model, sc, prior, okeys[last], cfg, d2) + (zero,)
-        inst, k_cong = sample(last)
-        valid = inst.valid if real else torch.zeros_like(inst.valid)
-        bases = sampling.SampledBases(inst.indices.to(d), inst.invariant1.to(d),
-                                      inst.invariant2.to(d), valid.to(d))
-        unconv = (~inst.fill_converged).sum(dtype=torch.int32).to(d) if real else zero
-        return _match_tail(model, sc, inst.class_prob.to(d) if real else prior,
-                           k_cong, bases, cfg, d2) + (unconv,)
+        with trace.span("multi.object"):
+            d = sc.pos.device
+            real = o < n_obj
+            last = min(o, n_obj - 1)
+            zero = torch.zeros((), dtype=torch.int32, device=d)
+            prior = probs[o].to(d) if real else torch.zeros_like(probs[0], device=d)
+            if not scene.has_edge:
+                return _match_one(model, sc, prior, okeys[last], cfg, d2) + (zero,)
+            inst, k_cong = sample(last)
+            valid = inst.valid if real else torch.zeros_like(inst.valid)
+            bases = sampling.SampledBases(inst.indices.to(d), inst.invariant1.to(d),
+                                          inst.invariant2.to(d), valid.to(d))
+            unconv = (~inst.fill_converged).sum(dtype=torch.int32).to(d) if real else zero
+            return _match_tail(model, sc, inst.class_prob.to(d) if real else prior,
+                               k_cong, bases, cfg, d2) + (unconv,)
 
     if mesh is None or mesh.size == 1:
         outs = [match(o, m, scene) for o, m in enumerate(aligned)]
@@ -199,23 +211,24 @@ def match_all_objects(models: Sequence[ModelPack], scene: ScenePack, probs,
         poses = g[:, per:17 * per].reshape(-1, 4, 4)[:n_obj].to(torch.float32)
         nhyp = g[:, 17 * per:18 * per].reshape(-1)[:n_obj].to(torch.int32)
         unconv = g[:, 18 * per:].reshape(-1)[:n_obj].to(torch.int32)
-    best, poses, nhyp, n_unconv = _to_host(best, poses, nhyp, unconv.sum())
-    if int(n_unconv):
-        warn(
-            f"{int(n_unconv)} flood fills across the multi-object batch did "
-            f"not reach their BFS fixpoint in flood_fill_sweeps="
-            f"{cfg.flood_fill_sweeps} sweeps — segments under-fill",
-            n_unconverged=int(n_unconv), sweeps=cfg.flood_fill_sweeps,
-        )
-    # score_hybrid scores only the first score_compact_cap valid
-    # hypotheses of an object and drops the rest
-    cap = cfg.score_compact_cap
-    slots = cfg.number_of_bases * cfg.maximum_congruent_sets
-    if cap and slots > cap and int(nhyp.max()) > cap:
-        warn(
-            f"an object produced {int(nhyp.max())} valid hypotheses, over "
-            f"score_compact_cap={cap}; overflow was not scored — raise "
-            f"the cap for full recall",
-            n_valid=int(nhyp.max()), cap=cap,
-        )
+    with trace.span("multi.read"):
+        best, poses, nhyp, n_unconv = _to_host(best, poses, nhyp, unconv.sum())
+        if int(n_unconv):
+            warn(
+                f"{int(n_unconv)} flood fills across the multi-object batch did "
+                f"not reach their BFS fixpoint in flood_fill_sweeps="
+                f"{cfg.flood_fill_sweeps} sweeps — segments under-fill",
+                n_unconverged=int(n_unconv), sweeps=cfg.flood_fill_sweeps,
+            )
+        # score_hybrid scores only the first score_compact_cap valid
+        # hypotheses of an object and drops the rest
+        cap = cfg.score_compact_cap
+        slots = cfg.number_of_bases * cfg.maximum_congruent_sets
+        if cap and slots > cap and int(nhyp.max()) > cap:
+            warn(
+                f"an object produced {int(nhyp.max())} valid hypotheses, over "
+                f"score_compact_cap={cap}; overflow was not scored — raise "
+                f"the cap for full recall",
+                n_valid=int(nhyp.max()), cap=cap,
+            )
     return best.astype(np.float32), poses.astype(np.float32), nhyp.astype(np.int32)

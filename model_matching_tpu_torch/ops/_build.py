@@ -6,7 +6,8 @@ and linked into one shared library with a plain C interface, under
 ``build/torch_kernels/<hash of the sources>/`` at the repository root, and
 loaded with ctypes. A changed source gives a new hash and a new
 build; an existing library for the same sources is reused. Importing this
-module builds nothing.
+module builds nothing. The build is the span `kernels.build`; each build
+counts `kernels.builds` and each load `kernels.loads` (utils/trace).
 """
 
 from __future__ import annotations
@@ -17,9 +18,10 @@ import os
 import pathlib
 import shutil
 import subprocess
-import time
 
 import torch
+
+from ..utils import trace
 
 _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -29,10 +31,7 @@ NVCC_FLAGS = (
 )
 
 _lib = None
-build_seconds = None   # wall time of this process's build, None if reused
 build_log = ""         # nvcc's output (register and shared-memory use)
-loads = 0              # times this process opened the library
-builds = 0             # times this process ran nvcc
 
 
 def _nvcc() -> str:
@@ -79,7 +78,7 @@ def launch(dev: torch.device, fn, *args) -> int:
 
 def load():
     """The kernels' shared library, built on first use."""
-    global _lib, build_seconds, build_log, loads, builds
+    global _lib
     if _lib is not None:
         return _lib
     if raw_stream is None:
@@ -96,37 +95,42 @@ def load():
     out_dir = _BUILD_ROOT / h.hexdigest()[:16]
     lib_path = out_dir / "libmm_torch_kernels.so"
     if not lib_path.exists():
-        out_dir.mkdir(parents=True, exist_ok=True)
-        nvcc = _nvcc()
-        t0 = time.perf_counter()
-        objs, procs = [], []
-        for s in sources:
-            obj = out_dir / f"{s.stem}.{os.getpid()}.o"
-            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(s)]
-            objs.append(obj)
-            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                stderr=subprocess.STDOUT, text=True)))
-        logs, failed = [], []
-        for cmd, proc in procs:
-            out, _ = proc.communicate()
-            logs.append(out)
-            if proc.returncode != 0:
-                failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
-        build_log = "".join(logs)
-        if failed:
-            raise RuntimeError("\n".join(failed))
-        tmp = out_dir / f"libmm_torch_kernels.{os.getpid()}.so"
-        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, lib_path)
-        for obj in objs:
-            obj.unlink()
-        build_seconds = time.perf_counter() - t0
-        builds += 1
+        with trace.span("kernels.build"):
+            _compile(sources, out_dir, lib_path)
+        trace.count("kernels.builds")
     _lib = _declare(ctypes.CDLL(str(lib_path)))
-    loads += 1
+    trace.count("kernels.loads")
     return _lib
+
+
+def _compile(sources, out_dir, lib_path):
+    """nvcc: one process per source, all started together, then the link."""
+    global build_log
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    objs, procs = [], []
+    for s in sources:
+        obj = out_dir / f"{s.stem}.{os.getpid()}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(s)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    build_log = "".join(logs)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    tmp = out_dir / f"libmm_torch_kernels.{os.getpid()}.so"
+    cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib_path)
+    for obj in objs:
+        obj.unlink()

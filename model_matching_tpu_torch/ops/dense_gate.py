@@ -23,6 +23,7 @@ import ctypes
 
 import torch
 
+from ..utils import trace
 from . import _build
 
 SUB = 16       # most stripes per Q tile: candidates kept per P row
@@ -136,8 +137,9 @@ def dense_gate(p_feat, q_feat, p_cell, q_cell, rp, rq, alpha, tol,
     False elides the cone tolerance test. Returns (row_best [B, P, n_sub]
     int32, counts [B, P] int32).
 
-    CUDA tensors launch the kernel (built at first use); CPU tensors take
-    the plain version. Nothing else is accepted."""
+    CUDA tensors launch the kernel (built at first use) and count
+    `k1.launches`; CPU tensors take the plain version. Nothing else is
+    accepted."""
     global _kernel
     dev = p_feat.device
     b_n, _, p = p_feat.shape
@@ -183,11 +185,8 @@ def dense_gate(p_feat, q_feat, p_cell, q_cell, rp, rq, alpha, tol,
     )
     if err != 0:
         raise RuntimeError(f"dense_gate: CUDA kernel launch failed (error {err})")
-    dense_gate.launches += 1
+    trace.count("k1.launches")
     return row_best, counts
-
-
-dense_gate.launches = 0
 
 
 def gate_rows(b_n: int, p: int, device) -> int:

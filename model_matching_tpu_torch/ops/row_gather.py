@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
 from . import _build
 
 
@@ -28,8 +29,9 @@ def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Rows of a [R, C] float32 contiguous table at int32/int64 indices of
     any shape (each in [0, R); callers clamp). Returns [*idx.shape, C].
 
-    CUDA tensors launch the kernel (built at first use); CPU tensors take
-    the plain version. Nothing else is accepted."""
+    CUDA tensors launch the kernel (built at first use) and count
+    `k2.launches`; CPU tensors take the plain version. Nothing else is
+    accepted."""
     global _kernel
     dev = table.device
     wide = idx.dtype == torch.int64
@@ -64,8 +66,5 @@ def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                         out.data_ptr(), n_idx, c)
     if err != 0:
         raise RuntimeError(f"row_gather: CUDA kernel launch failed (error {err})")
-    row_gather.launches += 1
+    trace.count("k2.launches")
     return out
-
-
-row_gather.launches = 0

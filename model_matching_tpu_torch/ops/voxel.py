@@ -25,6 +25,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..utils import trace
 from .fp import dot3, f32, mul_recip
 
 # Cells per axis for linearized voxel keys; indices are anchored at the
@@ -71,7 +72,10 @@ def _longest_run(key_s, cap: int) -> int:
     host read)."""
     _u, counts = torch.unique_consecutive(key_s, return_counts=True)
     counts = torch.where(_u == _INVALID_KEY, 0, counts)
-    return max(1, min(cap, int(counts.max()) if counts.numel() else 1))
+    if not counts.numel():
+        return 1
+    trace.count("host_reads")
+    return max(1, min(cap, int(counts.max())))
 
 
 def neighbor_blocks(pos, key, key_s, pos_s, cap: int, width: int):
@@ -127,6 +131,7 @@ def voxel_downsample_centroid(
     is_new = torch.ones(n, dtype=torch.bool, device=dev)
     is_new[1:] = key_s[1:] != key_s[:-1]
     seg = torch.cumsum(is_new.to(torch.int64), 0) - 1
+    trace.count("host_reads")
     n_seg_valid = int((is_new & (key_s != _INVALID_KEY)).sum())   # host read
     cols = [pos] + [v.to(pos.dtype).reshape(n, -1) for v in attrs.values()]
     x_s = torch.cat(cols, dim=1)[order]

@@ -117,6 +117,7 @@ def run_workload(mesh, device):
     in chunks of D. Returns the JSON-ready results."""
     from .. import rng
     from ..synthetic import synthetic_setup
+    from ..utils import trace
     from .sharding import matching_step_sharded, run_sweep_sharded
 
     n = mesh.size
@@ -127,6 +128,7 @@ def run_workload(mesh, device):
     best_lcp, best_w, _ct, cl_s, _st = run_sweep_sharded(mesh, model, scene, cfg, **kw)
     inst_best, inst_w, _ict, _ics, inst_stats = run_sweep_sharded(
         mesh, model, edge_scene(scene), cfg, **kw)
+    trace.count("host_reads", 3)        # best, pose and n_valid below
     return {
         "global_devices": n,
         "step_best": float(best),

@@ -58,6 +58,7 @@ from ..estimator import (
 from ..model import ModelPack
 from ..scene import ScenePack
 from ..scoring import _top_k
+from ..utils import trace
 from ..utils.device import require
 from ..utils.log import log_event, warn
 
@@ -168,6 +169,7 @@ def _all_gather(mesh: Mesh, parts, device) -> torch.Tensor:
     local = torch.stack([p.to(device) for p in parts])
     if mesh.process_count == 1:
         return local
+    trace.count("host_reads")
     host = local.cpu()
     out = [torch.empty_like(host) for _ in range(mesh.process_count)]
     dist.all_gather(out, host)
@@ -181,6 +183,7 @@ def _broadcast0(mesh: Mesh, tensors):
         return list(tensors)
     out = []
     for t in tensors:
+        trace.count("host_reads")
         host = t.cpu().to(torch.uint8 if t.dtype == torch.bool else t.dtype).contiguous()
         dist.broadcast(host, src=0)
         out.append(host.to(t.device, t.dtype))

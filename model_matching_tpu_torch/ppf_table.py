@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from . import native
+from .utils import trace
 from .ops.ppf import MIN_DISTANCE_BIN_MM, _ANGLE_RADIX, fanout_deltas
 
 # The direct-mapped tables are built only when the dense key space fits in
@@ -437,6 +438,7 @@ def resize_table(
     sizes and pad the pair array, so several models share identical shapes.
     The stored keys/CSR content is unchanged; `direct_size` None drops the
     direct-mapped twins. Returns a table on the CPU."""
+    trace.count("host_reads", 5)        # the four arrays here and the pairs below
     exist_keys = table.exist_keys.cpu().numpy()
     bin_keys = table.bin_keys.cpu().numpy()
     bin_offset = table.bin_offset.cpu().numpy()
@@ -498,6 +500,7 @@ def save_ppf_table(path: str, table: PPFTable, extra_meta: dict | None = None):
     }
     if extra_meta:
         meta.update(extra_meta)
+    trace.count("host_reads", 5)
     np.savez_compressed(
         path,
         meta=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8),

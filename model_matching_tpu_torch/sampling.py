@@ -20,6 +20,7 @@ from .ops import fmath, invariants
 from .ops.fp import sqrt_rn
 from .ops.ppf import ppf_keys_fast
 from .ppf_table import PPFTable, ppf_exists
+from .utils import trace
 
 _RAD2DEG = 180.0 / math.pi
 
@@ -82,23 +83,25 @@ def build_exists_bits(table: PPFTable, pos, normal, tr, rot,
     that turns every sampling round's existence mask into a row lookup.
     The words are int32 holding the JAX package's uint32 bit patterns
     (torch shifts no uint32 on every backend). Built on the device of
-    `pos` in row blocks of `chunk`."""
+    `pos` in row blocks of `chunk`, in the span `sampling.exists_bits`
+    (host time: it ends without waiting for the device)."""
     n = pos.shape[0]
     assert n % chunk == 0 and n % 32 == 0
-    weights = torch.ones((), dtype=torch.int64, device=pos.device) << torch.arange(
-        32, dtype=torch.int64, device=pos.device)
-    blocks = []
-    for i in range(0, n, chunk):
-        keys = ppf_keys_fast(
-            pos[i:i + chunk, None, :], normal[i:i + chunk, None, :],
-            pos[None, :, :], normal[None, :, :], tr, rot,
-        )
-        ex = ppf_exists(table, keys)                      # [chunk, n]
-        word = (ex.reshape(chunk, n // 32, 32).to(torch.int64) * weights).sum(-1)
-        # uint32 value -> the int32 with the same bits
-        blocks.append(torch.where(word >= 2 ** 31, word - 2 ** 32, word)
-                      .to(torch.int32))
-    return torch.cat(blocks)
+    with trace.span("sampling.exists_bits"):
+        weights = torch.ones((), dtype=torch.int64, device=pos.device) << torch.arange(
+            32, dtype=torch.int64, device=pos.device)
+        blocks = []
+        for i in range(0, n, chunk):
+            keys = ppf_keys_fast(
+                pos[i:i + chunk, None, :], normal[i:i + chunk, None, :],
+                pos[None, :, :], normal[None, :, :], tr, rot,
+            )
+            ex = ppf_exists(table, keys)                      # [chunk, n]
+            word = (ex.reshape(chunk, n // 32, 32).to(torch.int64) * weights).sum(-1)
+            # uint32 value -> the int32 with the same bits
+            blocks.append(torch.where(word >= 2 ** 31, word - 2 ** 32, word)
+                          .to(torch.int32))
+        return torch.cat(blocks)
 
 
 def _norm(v):

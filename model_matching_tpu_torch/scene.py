@@ -30,6 +30,7 @@ from .ops import geometry, normals as normals_ops, voxel
 from .ops.densefield import DenseField, build_dense_field
 from .ops.fp import f32, mul_recip, xla_sum0
 from .ops.gridhash import NeighborGrid, build_neighbor_grid
+from .utils import trace
 from .utils.device import require
 
 
@@ -80,6 +81,7 @@ def _scene_pipeline(rgb, depth_u16, probs_u16, edge_u8, cfg: MatchConfig,
     # voxel centroid downsample (pcl::VoxelGrid)
     pos, valid, _ = voxel.voxel_downsample_centroid(pos, valid, cfg.voxel_size)
     if prefix:
+        trace.count("host_reads")
         m = int(valid.sum())                         # host read
         pos, valid = pos[:m], valid[:m]
 
@@ -180,23 +182,37 @@ def load_scene_multi(
 ):
     """One shared scene geometry (union of the per-object probability
     supports), per-object probability vectors. Returns (ScenePack, probs
-    [O, P]); the pack's class_prob holds object 0's vector."""
+    [O, P]); the pack's class_prob holds object 0's vector. Spans:
+    `scene.load`, with `scene.read` (the PNG decode), `scene.pipeline` (the
+    uploads, the device pipeline and its one transfer) and `scene.build`."""
     dev = require(device)
-    rgb, depth, probs, edge, has_edge = _read_images(
-        rgb_path, depth_path, class_prob_paths, edge_path)
-    out = _scene_pipeline(
-        torch.from_numpy(rgb).to(dev), torch.from_numpy(depth.astype(np.int32)).to(dev),
-        torch.from_numpy(probs.astype(np.int32)).to(dev),
-        torch.from_numpy(edge).to(dev), cfg,
-    )
-    from .estimator import _to_host
+    with trace.span("scene.load"):
+        with trace.span("scene.read"):
+            rgb, depth, probs, edge, has_edge = _read_images(
+                rgb_path, depth_path, class_prob_paths, edge_path)
+        with trace.span("scene.pipeline"):
+            out = _scene_pipeline(
+                torch.from_numpy(rgb).to(dev),
+                torch.from_numpy(depth.astype(np.int32)).to(dev),
+                torch.from_numpy(probs.astype(np.int32)).to(dev),
+                torch.from_numpy(edge).to(dev), cfg,
+            )
+            from .estimator import _to_host
 
-    single = len(class_prob_paths) == 1
-    # one transfer for everything the host-side builds need; object 0's
-    # probabilities are baked into the scoring structures only when that
-    # is unambiguous (one probability map)
-    host = _to_host(out["truncated"], out["pos"], out["valid"], out["normal"],
-                    out["class_prob"][0])
+            # one transfer for everything the host-side builds need
+            host = _to_host(out["truncated"], out["pos"], out["valid"], out["normal"],
+                            out["class_prob"][0])
+        with trace.span("scene.build"):
+            pack = _build_structures(out, host, edge, has_edge, len(class_prob_paths) == 1,
+                                     cfg, dev)
+        return pack, out["class_prob"]
+
+
+def _build_structures(out, host, edge, has_edge, single, cfg: MatchConfig, dev):
+    """The host-side builds from the one transfer (both neighbour grids and
+    the dense field) and their uploads, assembled into the ScenePack.
+    Object 0's probabilities are baked into the scoring structures only
+    when that is unambiguous (`single`: one probability map)."""
     truncated = int(host[0])
     host_valid = host[2].astype(bool)
     host_pos = host[1].astype(np.float32)[host_valid]
@@ -214,7 +230,7 @@ def load_scene_multi(
                                normal=host_nrm, prob=host_prob)
     field = build_dense_field(host_pos, host_nrm, cfg.distance_threshold, prob=host_prob)
     icp_grid = build_neighbor_grid(host_pos, cell_size=cfg.icp_max_corr_dist)
-    pack = ScenePack(
+    return ScenePack(
         pos=out["pos"], normal=out["normal"], rgb=out["rgb"],
         pixel=out["pixel"], class_prob=out["class_prob"][0],
         edge_prob=out["edge_prob"], valid=out["valid"],
@@ -222,4 +238,3 @@ def load_scene_multi(
         icp_grid=icp_grid.to(dev), edge_free=torch.from_numpy(edge == 255).to(dev),
         has_edge=has_edge,
     )
-    return pack, out["class_prob"]

@@ -28,6 +28,7 @@ import torch
 from .ops import fmath
 from .ops.densefield import DenseField, field_lookup
 from .ops.fp import dot3
+from .utils import trace
 from .ops.gridhash import (
     NeighborGrid,
     query_restricted_nn_normal,
@@ -171,6 +172,7 @@ def run_bucketed(count, cap: int, fn_at_width):
     cap/2, cap) that covers `count` (one host read). Every live slot sits
     in the partition prefix, so the narrower run padded with dead slots
     equals the full-width run."""
+    trace.count("host_reads")
     n = int(count)
     for wd in (cap // 8, cap // 4, cap // 2):
         if n <= wd:

@@ -10,6 +10,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .utils import trace
 from .utils.device import require
 
 
@@ -72,6 +73,7 @@ class PointCloud:
 
     def to_numpy_trimmed(self) -> dict:
         """Host copy with the padding removed."""
+        trace.count("host_reads", len(dataclasses.fields(self)))
         valid = self.valid.cpu().numpy()
         return {f.name: getattr(self, f.name).cpu().numpy()[valid]
                 for f in dataclasses.fields(self) if f.name != "valid"}

@@ -4,6 +4,9 @@ structured fields, and one-line JSON events.
 Environment:
   MM_TORCH_LOG       level name (DEBUG/INFO/WARNING/ERROR); default INFO.
   MM_TORCH_LOG_JSON  when 1, log_event() prints bare JSON lines to stdout.
+  MM_TORCH_TRACE     when 0, the span and counter log (utils/trace.py) records
+                     nothing; counter totals are still kept, and spans that
+                     end on a device synchronize still synchronize.
 """
 
 from __future__ import annotations

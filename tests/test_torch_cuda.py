@@ -21,6 +21,7 @@ from model_matching_tpu_torch.estimator import StocsEstimator
 from model_matching_tpu_torch.ops import dense_gate as tdg
 from model_matching_tpu_torch.ops import row_gather as trg
 from model_matching_tpu_torch.synthetic import GATE_CELL_CASES, gate_cells, synthetic_setup
+from model_matching_tpu_torch.utils import trace
 
 MASK = 0x7FFFFFFF & ~((1 << 15) - 1)
 MARKER = 1 << 14
@@ -71,9 +72,9 @@ def test_kernel_matches_plain_on_cuda(p, q, q_tile, n_sub, check_cos, cells):
                   p_count=torch.tensor([p, 300], dtype=torch.int32, device=dev),
                   q_count=torch.tensor([q_valid, 1], dtype=torch.int32, device=dev),
                   live=live.to(dev), n_sub=n_sub, check_cos=check_cos)
-        before = tdg.dense_gate.launches
+        before = trace.total("k1.launches")
         got = tdg.dense_gate(*args, 2.0, 0.01, MASK, MARKER, **kw)
-        assert tdg.dense_gate.launches == before + 1
+        assert trace.total("k1.launches") == before + 1
         ref = tdg.dense_gate_reference(*args, 2.0, 0.01, MASK, MARKER, **kw)
         for a, r in zip(got, ref):
             assert torch.equal(a, r)
@@ -109,10 +110,10 @@ def test_estimator_cuda_matches_cpu(monkeypatch):
                                         num_bases=16, max_pairs=512,
                                         max_congruent=32, seed=0, device="cpu")
     cpu = StocsEstimator(model, scene, cfg).run(seed=1, verbose=False)
-    before = tdg.dense_gate.launches
+    before = trace.total("k1.launches")
     gpu = StocsEstimator(model.to(dev), scene.to(dev), cfg).run(seed=1,
                                                                 verbose=False)
-    assert tdg.dense_gate.launches > before
+    assert trace.total("k1.launches") > before
     assert gpu.best_index == cpu.best_index >= 0
     assert abs(gpu.best_lcp - cpu.best_lcp) <= 1e-5
     assert torch.equal(gpu.poses.valid.cpu(), cpu.poses.valid)
@@ -134,9 +135,9 @@ def test_row_gather_kernel_matches_plain_on_cuda(rows, c, n_idx, dtype):
     g = torch.Generator().manual_seed(rows)
     tab = torch.randn(rows, c, generator=g).to(dev)
     idx = torch.randint(0, rows, (n_idx,), generator=g).to(dtype).to(dev)
-    before = trg.row_gather.launches
+    before = trace.total("k2.launches")
     got = trg.row_gather(tab, idx)
-    assert trg.row_gather.launches == before + 1
+    assert trace.total("k2.launches") == before + 1
     assert torch.equal(got, trg.row_gather_reference(tab, idx))
     # a table view 4 bytes off 16-byte alignment takes the scalar path
     flat = torch.randn(rows * c + 1, generator=g).to(dev)
@@ -231,9 +232,9 @@ def test_instance_run_and_sweep_card_equal_cpu(tmp_path):
     ce = StocsEstimator(model, scene, cfg)
     cpu = ce.run(seed=2, verbose=False)
     ge = StocsEstimator(model.to(dev), scene.to(dev), cfg)
-    gates, gathers = tdg.dense_gate.launches, trg.row_gather.launches
+    gates, gathers = trace.total("k1.launches"), trace.total("k2.launches")
     gpu = ge.run(seed=2, verbose=False)
-    assert trg.row_gather.launches > gathers
+    assert trace.total("k2.launches") > gathers
     assert gpu.best_index == cpu.best_index >= 0
     assert abs(gpu.best_lcp - cpu.best_lcp) <= 1e-5
     assert torch.equal(ge.class_prob.cpu(), ce.class_prob)
@@ -257,4 +258,43 @@ def test_instance_run_and_sweep_card_equal_cpu(tmp_path):
     assert np.array_equal(gpu[2], whole[2]) and np.array_equal(gpu[3], whole[3])
     assert abs(gpu[0] - cpu[0]) <= 1e-5 and gpu[4]["hypotheses"] == cpu[4]["hypotheses"]
     assert abs(gpu[1] - cpu[1]).max() <= 1e-4 and len(gpu[3]) == len(cpu[3])
-    assert tdg.dense_gate.launches >= gates
+    assert trace.total("k1.launches") >= gates
+
+
+@pytest.mark.cuda
+def test_spans_on_the_card_profilers_clock():
+    """On the card: a profiler capture of a run holds no `mm.*` range unless
+    annotate(True) is set; under it, each range starts within 1 ms of its
+    span's start mapped by to_profiler_ns, and a span with `sync` waits for
+    the device."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = _card()
+    model, scene, cfg = synthetic_setup(num_model=128, num_scene=512, num_bases=16,
+                                        max_pairs=256, max_congruent=16, device=dev)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    StocsEstimator(model, scene, cfg).run(verbose=False)
+    with profile(activities=acts) as prof:
+        StocsEstimator(model, scene, cfg).run(verbose=False)
+        torch.cuda.synchronize()
+    assert not [e for e in prof.profiler.kineto_results.events()
+                if e.name().startswith("mm.")]
+    rec = trace.Recorder()
+    rec.annotate(True)
+    x = torch.randn(1 << 22, device=dev)
+    with profile(activities=acts) as prof:
+        for i in range(4):
+            with rec.span(f"probe{i}", sync=dev):
+                for _ in range(20):
+                    x = x * 1.0001
+    spans = {s.name: s for s in rec.snapshot().entries}
+    host = {e.name()[3:]: e for e in prof.profiler.kineto_results.events()
+            if e.name().startswith("mm.") and e.device_type() != DeviceType.CUDA}
+    for name in ("probe2", "probe3"):
+        assert abs(host[name].start_ns() - trace.to_profiler_ns(spans[name].t0)) < 1_000_000
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA and not e.name().startswith("mm.")]
+    last = max(kernels, key=lambda e: e.start_ns() + e.duration_ns())
+    # the span ended after the device's last kernel of it
+    assert trace.to_profiler_ns(spans["probe3"].t1) >= last.start_ns() + last.duration_ns() - 1_000_000
