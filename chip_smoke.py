@@ -1016,8 +1016,8 @@ def _check_gathers(torch, cases, time_repeats=True):
 
 def _ingest_breakdown(torch, dev, paths, cfg):
     """Wall time of load_scene's stages on the card, warm: PNG reads, the
-    device pipeline, the one transfer to the host, the host builds of the
-    two grids and the dense field."""
+    device pipeline with the read of its point count, and the builds of
+    the two grids and the dense field on the card."""
     import numpy as np
 
     from model_matching_tpu_torch import scene as sc
@@ -1034,23 +1034,18 @@ def _ingest_breakdown(torch, dev, paths, cfg):
                              torch.from_numpy(depth.astype(np.int32)).to(dev),
                              torch.from_numpy(probs.astype(np.int32)).to(dev),
                              torch.from_numpy(edge).to(dev), cfg)
-    torch.cuda.synchronize()
+    (n,) = (int(v) for v in _to_host(out["count"]))
     t["device_pipeline"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    pos, valid, nrm, prob = _to_host(out["pos"], out["valid"], out["normal"],
-                                     out["class_prob"][0])
-    t["to_host"] = time.perf_counter() - t0
-    keep = valid.astype(bool)
-    pos, nrm, prob = (a.astype(np.float32)[keep] for a in (pos, nrm, prob))
-    t0 = time.perf_counter()
-    build_neighbor_grid(pos, cfg.distance_threshold, normal=nrm, prob=prob)
-    t["grid"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    build_dense_field(pos, nrm, cfg.distance_threshold, prob=prob)
-    t["field"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    build_neighbor_grid(pos, cfg.icp_max_corr_dist)
-    t["icp_grid"] = time.perf_counter() - t0
+    pos, nrm, prob = out["pos"][:n], out["normal"][:n], out["class_prob"][0, :n]
+    for name, build in (
+            ("grid", lambda: build_neighbor_grid(pos, cfg.distance_threshold,
+                                                 normal=nrm, prob=prob)),
+            ("field", lambda: build_dense_field(pos, nrm, cfg.distance_threshold, prob=prob)),
+            ("icp_grid", lambda: build_neighbor_grid(pos, cfg.icp_max_corr_dist))):
+        t0 = time.perf_counter()
+        build()
+        torch.cuda.synchronize()
+        t[name] = time.perf_counter() - t0
     print(f"load_scene stages on the card, warm ({_gpu_name_and_limit()}): "
           + json.dumps({k: round(v * 1e3, 3) for k, v in t.items()}) + " ms")
 

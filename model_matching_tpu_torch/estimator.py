@@ -58,9 +58,11 @@ class StocsResult:
 def _to_host(*tensors):
     """One device->host transfer for a group of values: each is flattened
     into one float64 vector (exact for int32 and float32) and split back.
-    Returns numpy arrays in the input shapes. Counts one `host_reads`."""
+    Returns numpy arrays in the input shapes. Counts one `host_reads` and
+    the bytes read as `host_read_bytes`."""
     trace.count("host_reads")
     flat = torch.cat([t.reshape(-1).to(torch.float64) for t in tensors]).cpu().numpy()
+    trace.count("host_read_bytes", flat.nbytes)
     out, i = [], 0
     for t in tensors:
         n = t.numel()

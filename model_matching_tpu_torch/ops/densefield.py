@@ -4,9 +4,10 @@ Counterpart of ``model_matching_tpu/ops/densefield.py``. For every cell of a
 dense eps-grid over the scene bbox the build stores the scene point nearest
 to the cell center within eps * (1 + sqrt(3)/2); a query reads its cell's
 row (position, normal, index, weight) and applies the exact distance and
-normal gates to that stored candidate. Built on the host in numpy, read in
-torch on the device of the field's tensors; the row read is the row-gather
-kernel (ops/row_gather.py) on the card.
+normal gates to that stored candidate. Built and read in torch on the
+device of the points (the build equal bit for bit to the JAX package's
+numpy build); the row read is the row-gather kernel (ops/row_gather.py) on
+the card.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from .fp import div_const, f32, norm3
+from .gridhash import _NONE, _as_f32, _cell_bounds, _read
 from .row_gather import row_gather
 
 _SLACK = 1.0 + np.sqrt(3.0) / 2.0
@@ -38,61 +41,51 @@ class DenseField:
         )
 
 
-def build_dense_field(pos: np.ndarray, normal: np.ndarray, eps: float,
-                      prob: np.ndarray | None = None) -> DenseField:
-    pos = np.asarray(pos, np.float32)
-    normal = np.asarray(normal, np.float32)
+def build_dense_field(pos, normal, eps: float, prob=None) -> DenseField:
+    """Build from unpadded [N, 3] positions and normals on their device
+    (tensors, or numpy arrays: then on the CPU), equal bit for bit to the
+    numpy build of the JAX package's ops/densefield.py. One host read: the
+    dims."""
+    eps = float(eps)
+    pos = _as_f32(pos)
+    dev = pos.device
+    normal = _as_f32(normal, dev)
     n = pos.shape[0]
-    lo = pos.min(0) - 2 * eps
-    hi = pos.max(0) + 2 * eps
-    dims = np.maximum(np.ceil((hi - lo) / eps).astype(np.int64) + 1, 1)
-    g = int(dims.prod())
+    lo, dims_t, stride = _cell_bounds(pos, 2 * eps, eps)
+    (dims,) = _read(dims_t)
+    g = int(np.prod(dims))
 
     # candidate (cell, point) pairs: each point covers the cells whose
     # center lies within SLACK * eps
     reach = int(np.ceil(_SLACK))
-    offs = np.array(
-        [
-            (dx, dy, dz)
-            for dx in range(-reach, reach + 1)
-            for dy in range(-reach, reach + 1)
-            for dz in range(-reach, reach + 1)
-        ],
-        np.int64,
-    )
-    pc = np.floor((pos - lo) / eps).astype(np.int64)
-    cells = pc[:, None, :] + offs[None, :, :]
-    centers = (cells.astype(np.float32) + 0.5) * eps + lo
-    d = np.linalg.norm(centers - pos[:, None, :], axis=-1)
-    ok = (d <= _SLACK * eps) & (cells >= 0).all(-1) & (cells < dims).all(-1)
-    flat = (cells[..., 0] * dims[1] + cells[..., 1]) * dims[2] + cells[..., 2]
+    step = torch.arange(-reach, reach + 1, device=dev)
+    offs = torch.cartesian_prod(step, step, step)
+    pc = torch.floor(div_const(pos - lo, eps)).to(torch.int64)
+    cells = pc[:, None, :] + offs
+    centers = (cells.to(torch.float32) + 0.5) * f32(eps) + lo
+    d = norm3(centers - pos[:, None, :])
+    ok = (d.double() <= float(_SLACK * eps)) & ((cells >= 0) & (cells < dims_t)).all(-1)
 
-    flat = flat[ok]
-    dist = d[ok]
-    pidx = np.broadcast_to(np.arange(n, dtype=np.int64)[:, None], ok.shape)[ok]
+    # per cell the candidate nearest to its center, ties to the lowest point
+    # index: the least of (float32 bits of the distance, >= 0) << 32 | point
+    key = (d.view(torch.int32).to(torch.int64) << 32) | torch.arange(n, device=dev)[:, None]
+    cell = torch.where(ok, (cells * stride).sum(-1), g)
+    best = torch.full((g + 1,), _NONE, dtype=torch.int64, device=dev)
+    best.scatter_reduce_(0, cell.flatten(), torch.where(ok, key, _NONE).flatten(), "amin")
+    hit = best[:g, None] != _NONE
+    win = torch.where(hit[:, 0], best[:g] & 0xFFFFFFFF, 0)
 
-    # per cell: the candidate nearest to its center
-    order = np.lexsort((dist, flat))
-    flat_s = flat[order]
-    first = np.concatenate([[True], flat_s[1:] != flat_s[:-1]])
-    win_cell = flat_s[first]
-    win_point = pidx[order][first]
-
-    rows = np.zeros((g, 8), np.float32)
-    rows[win_cell, 0:3] = pos[win_point]
-    rows[win_cell, 3:6] = normal[win_point]
-    rows[win_cell, 6] = win_point.astype(np.float32)
-    if prob is None:
-        rows[win_cell, 7] = 1.0
-    else:
-        rows[:, 7] = -1.0
-        rows[win_cell, 7] = np.asarray(prob, np.float32)[win_point]
-
+    s7 = (torch.ones(n, device=dev) if prob is None else _as_f32(prob, dev))
+    rows = torch.cat([pos, normal, torch.arange(n, device=dev).to(torch.float32)[:, None],
+                      s7[:, None]], 1)[win]
+    rows = torch.where(hit, rows, 0.0)
+    if prob is not None:
+        rows[:, 7].masked_fill_(~hit[:, 0], -1.0)
     return DenseField(
-        rows=torch.from_numpy(rows),
-        origin=torch.from_numpy(np.asarray(lo, np.float32)),
-        dims=torch.from_numpy(dims.astype(np.int32)),
-        cell=torch.tensor(np.float32(eps)),
+        rows=rows,
+        origin=lo,
+        dims=dims_t.to(torch.int32),
+        cell=torch.full((), f32(eps), dtype=torch.float32, device=dev),
         has_probs=prob is not None,
     )
 

@@ -72,6 +72,14 @@ def sqrt_rn(x):
     return torch.sqrt(x.double()).float()
 
 
+def norm3(d):
+    """float32 Euclidean norm over the last axis (size 3) as numpy's
+    linalg.norm rounds it: (x*x + y*y) + z*z, each step a float32
+    operation, then a correctly rounded root."""
+    s = d * d
+    return sqrt_rn((s[..., 0] + s[..., 1]) + s[..., 2])
+
+
 def xla_sum0(x, window: int = 32):
     """float32 sum over axis 0 in the order of the JAX package's compiled
     reduction: XLA's CPU tree-reduction rewrite sums windows of 32 rows

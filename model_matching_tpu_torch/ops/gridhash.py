@@ -4,8 +4,9 @@ Counterpart of ``model_matching_tpu/ops/gridhash.py``. The scene is binned
 into cells of the query radius; every cell of the dilated occupied set
 stores the candidate list of its 3x3x3 neighborhood (ball-filtered). A
 query is one hash probe plus a fixed-cap scan, or, with the padded-payload
-layout, one cell-map read plus one [cell_cap, 8] row read. Built on the
-host in numpy, queried in torch on the device of the grid's tensors.
+layout, one cell-map read plus one [cell_cap, 8] row read. Built and
+queried in torch on the device of the points, equal bit for bit to the
+JAX package's numpy build.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..ppf_table import _build_open_table, _mix32
+from ..ppf_table import _mix32
+from .fp import div_const, f32, norm3
 from .row_gather import row_gather
 
 
@@ -57,100 +59,177 @@ _BALL_SLACK = 1.0 + np.sqrt(3.0) / 2.0
 _MAX_MAP_CELLS = 1 << 26
 _MAX_PAYLOAD_BYTES = 512 << 20
 
+# open-addressing insertion rounds between two host reads of the table's state
+_TABLE_ROUNDS = 8
+
+_NONE = torch.iinfo(torch.int64).max
+
+
+def _read(*tensors):
+    """One counted host read of a group of integer device values; 0-dim
+    values come back as ints, others as int64 arrays."""
+    from ..estimator import _to_host
+
+    return [int(v) if v.ndim == 0 else v.astype(np.int64) for v in _to_host(*tensors)]
+
+
+def _as_f32(a, device=None) -> torch.Tensor:
+    """`a` (a tensor, or a numpy array read in place) as float32 on
+    `device` (default: where it is)."""
+    if not isinstance(a, torch.Tensor):
+        a = torch.from_numpy(np.ascontiguousarray(a, np.float32))
+    return a.to(device=device, dtype=torch.float32)
+
+
+def _cell_bounds(pos: torch.Tensor, pad: float, cell: float):
+    """Grid corner lo = min - pad [3] f32 and cells per axis dims =
+    max(ceil((max + pad - lo) / cell) + 1, 1) [3] int64, rounded as numpy
+    rounds them in float32; plus the strides [3] of the linear cell key
+    (i * d1 + j) * d2 + k."""
+    lo = pos.amin(0) - f32(pad)
+    hi = pos.amax(0) + f32(pad)
+    dims = torch.clamp(torch.ceil(div_const(hi - lo, cell)).to(torch.int64) + 1, min=1)
+    stride = torch.stack([dims[1] * dims[2], dims[2], torch.ones_like(dims[2])])
+    return lo, dims, stride
+
+
+def _place(dest: torch.Tensor, values: torch.Tensor, count: int) -> torch.Tensor:
+    """[count] with values[i] at dest[i]; entries with dest == count are
+    dropped. `count` is already on the host, so nothing waits for the
+    device."""
+    return values.new_empty(count + 1).scatter_(0, dest, values)[:count]
+
+
+def _open_table(keys: torch.Tensor, extra=()):
+    """ppf_table._build_open_table on the device of the sorted unique keys:
+    the same power-of-two linear-probe table (indices into `keys`, -1 =
+    empty) and max_probes. Each round every key still waiting probes its
+    slot, and the lowest-indexed one takes an open slot, as
+    np.unique(return_index=True) picks it there; a key placed in round r
+    has moved r slots, so the rounds are the largest move + 1. The state is
+    read every _TABLE_ROUNDS rounds, the first time together with the
+    device values `extra`. Returns (table, max_probes, the values of
+    `extra`)."""
+    dev = keys.device
+    u = keys.shape[0]
+    size = 1 << int(np.ceil(np.log2(max(4 * u, 16))))
+    mask = size - 1
+    home = _mix32(keys) & mask
+    slot = home
+    idx = torch.arange(u, device=dev)
+    table = torch.full((size,), u, dtype=torch.int64, device=dev)   # u = open
+    at = torch.arange(size, device=dev)
+    extra_values = None
+    rounds = 0
+    while True:
+        rounds += _TABLE_ROUNDS
+        for _ in range(_TABLE_ROUNDS):
+            bid = torch.where(table[slot] == u, idx, u)
+            table.scatter_reduce_(0, slot, bid, "amin")
+            slot = (slot + (table[slot] != idx)) & mask
+        # a missing key scans until the first empty slot: the miss bound is
+        # the longest circular run of occupied slots + 1 (any empty slot
+        # starts the circle)
+        occ = table < u
+        ring = occ[(at + torch.argmin(occ.to(torch.int32))) % size]
+        run = at - torch.cummax(torch.where(ring, -1, at), 0).values
+        waiting, moved, longest, full, *got = _read(
+            (table[slot] != idx).any(), ((slot - home) & mask).max(), run.max(),
+            occ.all(), *extra)
+        if extra_values is None:
+            extra, extra_values = (), got
+        if full:
+            raise RuntimeError("hash table is full")
+        if not waiting:
+            table = torch.where(occ, table, -1)
+            return table, max(moved + 1, longest + 1), extra_values
+        if rounds > size:
+            raise RuntimeError("open addressing failed to converge")
+
 
 def build_neighbor_grid(
-    pos: np.ndarray,
+    pos,
     cell_size: float,
     cell_cap: int | None = None,
-    normal: np.ndarray | None = None,
-    prob: np.ndarray | None = None,
+    normal=None,
+    prob=None,
     payload: bool = True,
 ) -> NeighborGrid:
-    """Host-side build from unpadded [N, 3] positions; tensors on the CPU.
+    """Build from unpadded [N, 3] positions on their device (tensors, or
+    numpy arrays: then on the CPU), equal bit for bit to the numpy build of
+    the JAX package's ops/gridhash.py.
 
     cell_cap=None sizes the scan cap to the longest candidate list (exact);
     an explicit cap bounds memory and warns when it truncates. `normal` /
     `prob` bake per-candidate normals / class probabilities into the
-    payload rows."""
-    pos = np.asarray(pos, dtype=np.float32)
+    payload rows. Host reads: the dims and the dilated cell count, the
+    candidate total, then the longest list with the table's state (one
+    more every _TABLE_ROUNDS insertion rounds)."""
+    cell_size = float(cell_size)
+    pos = _as_f32(pos)
+    dev = pos.device
     n = pos.shape[0]
-    lo = pos.min(axis=0) - cell_size
-    hi = pos.max(axis=0) + cell_size
-    dims = np.maximum(np.ceil((hi - lo) / cell_size).astype(np.int64) + 1, 1)
+    lo, dims_t, stride = _cell_bounds(pos, cell_size, cell_size)
+    ijk = torch.floor(div_const(pos - lo, cell_size)).to(torch.int64)
+    ijk = torch.minimum(torch.clamp(ijk, min=0), dims_t - 1)
+    keys = (ijk * stride).sum(-1)
 
-    ijk = np.floor((pos - lo) / cell_size).astype(np.int64)
-    ijk = np.clip(ijk, 0, dims - 1)
+    # dilated cell set: every cell adjacent to an occupied cell, sorted
+    step = torch.arange(-1, 2, device=dev)
+    offsets = torch.cartesian_prod(step, step, step)     # [27, 3], dz fastest
+    dilated = ijk[:, None, :] + offsets
+    ok = ((dilated >= 0) & (dilated < dims_t)).all(-1)
+    dk = torch.sort(torch.where(ok, (dilated * stride).sum(-1), _NONE).flatten()).values
+    first = torch.ones_like(dk, dtype=torch.bool)
+    first[1:] = dk[1:] != dk[:-1]
+    first &= dk != _NONE
+    dims, u = _read(dims_t, first.sum())
+    dilated_keys = _place(torch.where(first, torch.cumsum(first, 0) - 1, u), dk, u)
 
-    def linear(c):
-        return (c[..., 0] * dims[1] + c[..., 1]) * dims[2] + c[..., 2]
-
-    keys = linear(ijk)
-    offsets = np.array(
-        [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1) for dz in (-1, 0, 1)],
-        dtype=np.int64,
-    )
-    dilated = ijk[:, None, :] + offsets[None, :, :]
-    ok = ((dilated >= 0) & (dilated < dims)).all(axis=-1)
-    dilated_keys = np.unique(linear(dilated[ok]))
-
-    order = np.argsort(keys, kind="stable")
-    keys_sorted = keys[order]
-    u = len(dilated_keys)
-    starts = np.empty((27, u), dtype=np.int64)
-    ends = np.empty((27, u), dtype=np.int64)
-    for oi, (dx, dy, dz) in enumerate(offsets):
-        nkeys = dilated_keys + (dx * dims[1] + dy) * dims[2] + dz
-        starts[oi] = np.searchsorted(keys_sorted, nkeys, side="left")
-        ends[oi] = np.searchsorted(keys_sorted, nkeys, side="right")
-    counts_per = ends - starts
-
-    tt = counts_per.ravel()
-    total = int(tt.sum())
-    seg_base = np.cumsum(tt) - tt
-    r = np.arange(total, dtype=np.int64) - np.repeat(seg_base, tt)
-    src = np.repeat(starts.ravel(), tt) + r
-    cand_pt = order[src]
-    cell_for = np.repeat(np.tile(np.arange(u, dtype=np.int64), 27), tt)
+    # each cell's 27 neighbour key ranges in the points sorted by key (the
+    # stable sort keeps equal keys in point order), cell-major: the order
+    # numpy's stable regroup by cell gives
+    keys_sorted, order = torch.sort(keys, stable=True)
+    nkeys = dilated_keys[:, None] + (offsets * stride).sum(-1)
+    starts = torch.searchsorted(keys_sorted, nkeys).flatten()
+    tt = torch.searchsorted(keys_sorted, nkeys, right=True).flatten() - starts
+    (total,) = _read(tt.sum())
+    seg = torch.repeat_interleave(torch.arange(u * 27, device=dev), tt, output_size=total)
+    r = torch.arange(total, device=dev) - (torch.cumsum(tt, 0) - tt)[seg]
+    cand_pt = order[starts[seg] + r]
+    cell_for = seg // 27
 
     # ball filter against the owning cell's center
-    cz = dilated_keys % dims[2]
-    cy = (dilated_keys // dims[2]) % dims[1]
-    cx = dilated_keys // (dims[1] * dims[2])
-    centers = lo + (
-        np.stack([cx, cy, cz], axis=1).astype(np.float32) + 0.5
-    ) * cell_size
-    d = np.linalg.norm(pos[cand_pt] - centers[cell_for], axis=1)
-    keep = d <= _BALL_SLACK * cell_size * (1.0 + 1e-5)
-    cand_pt = cand_pt[keep]
-    cell_for = cell_for[keep]
+    cxyz = (dilated_keys[:, None] // stride) % dims_t
+    centers = lo + (cxyz.to(torch.float32) + 0.5) * f32(cell_size)
+    d = norm3(pos[cand_pt] - centers[cell_for])
+    keep = d.double() <= float(_BALL_SLACK * cell_size * (1.0 + 1e-5))
+    counts = torch.zeros(u, dtype=torch.int64, device=dev).index_add_(0, cell_for, keep.long())
+    group_start = torch.cumsum(counts, 0) - counts
+    within = torch.cumsum(keep, 0) - 1 - group_start[cell_for]
 
-    o2 = np.argsort(cell_for, kind="stable")
-    cand_pt = cand_pt[o2]
-    cell_for = cell_for[o2]
-    counts = np.bincount(cell_for, minlength=u).astype(np.int64)
-    max_count = int(counts.max()) if u else 0
-
+    cand_count = counts if cell_cap is None else torch.clamp(counts, max=cell_cap)
+    table_idx, max_probes, (max_count, n_flat, dropped, over) = _open_table(
+        dilated_keys, (counts.max(), cand_count.sum(), (counts - cand_count).sum(),
+                       (counts > cand_count).sum()))
     if cell_cap is None:
         cap = max(8, -(-max_count // 8) * 8)
     else:
         cap = cell_cap
-        dropped = int(np.maximum(counts - cap, 0).sum())
         if dropped:
             from ..utils.log import warn
 
             warn(
                 f"neighbor grid dropped {dropped} candidate entries in "
-                f"{int((counts > cap).sum())}/{u} cells — NN queries in "
+                f"{over}/{u} cells — NN queries in "
                 f"those cells may miss the true nearest point; raise "
                 f"cell_cap or pass None for the exact auto cap",
                 cell_cap=cap, densest=max_count,
             )
 
-    group_start = np.cumsum(counts) - counts
-    within = np.arange(len(cand_pt), dtype=np.int64) - np.repeat(group_start, counts)
-    flat = cand_pt[within < cap]
-    cand_count = np.minimum(counts, cap)
-    cand_offset = np.cumsum(cand_count) - cand_count
+    cand_offset = torch.cumsum(cand_count, 0) - cand_count
+    dest = torch.where(keep & (within < cap), cand_offset[cell_for] + within, n_flat)
+    flat = _place(dest, cand_pt, n_flat)
 
     g_total = int(np.prod(dims))
     pay = cmap = None
@@ -162,40 +241,32 @@ def build_neighbor_grid(
         and g_total <= _MAX_MAP_CELLS
         and u * cap * 32 <= _MAX_PAYLOAD_BYTES
     ):
-        payf = np.zeros((u, cap, 8), np.float32)
-        payf[:, :, 0:3] = np.inf               # pad positions never win
-        payf[:, :, 6] = -1.0
-        rows_ = np.repeat(np.arange(u, dtype=np.int64), cand_count)
-        cols_ = np.arange(len(flat), dtype=np.int64) - np.repeat(cand_offset, cand_count)
-        payf[rows_, cols_, 0:3] = pos[flat]
-        if normal is not None:
-            payf[rows_, cols_, 3:6] = np.asarray(normal, np.float32)[flat]
-            has_normals = True
-        payf[rows_, cols_, 6] = flat.astype(np.float32)
-        payf[rows_, cols_, 7] = 1.0 if prob is None else np.asarray(prob, np.float32)[flat]
-        cmap_np = np.full(g_total, -1, np.int32)
-        cmap_np[dilated_keys] = np.arange(u, dtype=np.int32)
-        pay = torch.from_numpy(payf)
-        cmap = torch.from_numpy(cmap_np)
+        rows_ = torch.repeat_interleave(torch.arange(u, device=dev), cand_count,
+                                        output_size=n_flat)
+        cols_ = torch.arange(n_flat, device=dev) - cand_offset[rows_]
+        pay = torch.zeros((u, cap, 8), dtype=torch.float32, device=dev)
+        pay[:, :, 0:3] = torch.inf               # pad positions never win
+        pay[:, :, 6] = -1.0
+        has_normals = normal is not None
+        pay[rows_, cols_] = torch.cat([
+            pos[flat],
+            _as_f32(normal, dev)[flat] if has_normals else pos.new_zeros((n_flat, 3)),
+            flat.to(torch.float32)[:, None],
+            (pos.new_ones(n_flat) if prob is None else _as_f32(prob, dev)[flat])[:, None],
+        ], 1)
+        cmap = torch.full((g_total,), -1, dtype=torch.int32, device=dev)
+        cmap[dilated_keys] = torch.arange(u, dtype=torch.int32, device=dev)
 
-    table_idx, max_probes = _build_open_table(dilated_keys.astype(np.int32))
-    t = table_idx.shape[0]
-    table_keys = np.full(t, -1, dtype=np.int32)
-    table_offset = np.zeros(t, dtype=np.int32)
-    table_count = np.zeros(t, dtype=np.int32)
     occ = table_idx >= 0
-    table_keys[occ] = dilated_keys[table_idx[occ]].astype(np.int32)
-    table_offset[occ] = cand_offset[table_idx[occ]].astype(np.int32)
-    table_count[occ] = cand_count[table_idx[occ]].astype(np.int32)
-
+    ti = torch.clamp(table_idx, min=0)
     return NeighborGrid(
-        origin=torch.from_numpy(np.asarray(lo, np.float32)),
-        dims=torch.from_numpy(dims.astype(np.int32)),
-        cell_size=torch.tensor(np.float32(cell_size)),
-        table_keys=torch.from_numpy(table_keys),
-        table_offset=torch.from_numpy(table_offset),
-        table_count=torch.from_numpy(table_count),
-        cand_idx=torch.from_numpy(flat.astype(np.int32)),
+        origin=lo,
+        dims=dims_t.to(torch.int32),
+        cell_size=torch.full((), f32(cell_size), dtype=torch.float32, device=dev),
+        table_keys=torch.where(occ, dilated_keys[ti], -1).to(torch.int32),
+        table_offset=torch.where(occ, cand_offset[ti], 0).to(torch.int32),
+        table_count=torch.where(occ, cand_count[ti], 0).to(torch.int32),
+        cand_idx=flat.to(torch.int32),
         max_probes=int(max_probes),
         cell_cap=int(cap),
         cell_map=cmap,

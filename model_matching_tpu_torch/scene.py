@@ -6,7 +6,8 @@ centroid downsample, radius outlier removal, z-clip, per-point
 probability / colour / normal fetch by reprojection, probability and
 normal rejection, compaction to `max_scene_points` lanes, centroid shift
 — on the device of the caller's choice — then the neighbour grids and the
-dense field built on the host from one transfer.
+dense field built on the same device from the valid lanes, with a few
+host reads of their sizes and no transfer of the scene.
 
 The voxel output keeps the input's capacity (one lane per pixel), but its
 valid lanes form a prefix (invalid keys sort last). The steps after it run
@@ -164,8 +165,8 @@ def load_scene(
     cfg: MatchConfig,
     device="cuda",
 ) -> ScenePack:
-    """Image reads + the ingest pipeline on `device` + host structure
-    builds. A missing edge map reads as zeros (all free space); a present
+    """Image reads + the ingest pipeline and the structure builds on
+    `device`. A missing edge map reads as zeros (all free space); a present
     one marks the scene `has_edge` (the instance path)."""
     pack, _probs = load_scene_multi(
         rgb_path, depth_path, [class_prob_path], edge_path, cfg, device=device)
@@ -184,40 +185,39 @@ def load_scene_multi(
     supports), per-object probability vectors. Returns (ScenePack, probs
     [O, P]); the pack's class_prob holds object 0's vector. Spans:
     `scene.load`, with `scene.read` (the PNG decode), `scene.pipeline` (the
-    uploads, the device pipeline and its one transfer) and `scene.build`."""
+    uploads, the device pipeline and the read of its point count) and
+    `scene.build` (the grids and the field; counts the bytes its host reads
+    move as `scene.build_copy_bytes`)."""
     dev = require(device)
     with trace.span("scene.load"):
         with trace.span("scene.read"):
             rgb, depth, probs, edge, has_edge = _read_images(
                 rgb_path, depth_path, class_prob_paths, edge_path)
         with trace.span("scene.pipeline"):
+            edge_t = torch.from_numpy(edge).to(dev)
             out = _scene_pipeline(
                 torch.from_numpy(rgb).to(dev),
                 torch.from_numpy(depth.astype(np.int32)).to(dev),
                 torch.from_numpy(probs.astype(np.int32)).to(dev),
-                torch.from_numpy(edge).to(dev), cfg,
+                edge_t, cfg,
             )
             from .estimator import _to_host
 
-            # one transfer for everything the host-side builds need
-            host = _to_host(out["truncated"], out["pos"], out["valid"], out["normal"],
-                            out["class_prob"][0])
+            count, truncated = (int(v) for v in _to_host(out["count"], out["truncated"]))
         with trace.span("scene.build"):
-            pack = _build_structures(out, host, edge, has_edge, len(class_prob_paths) == 1,
-                                     cfg, dev)
+            read0 = trace.total("host_read_bytes")
+            pack = _build_structures(out, count, truncated, edge_t, has_edge,
+                                     len(class_prob_paths) == 1, cfg)
+            trace.count("scene.build_copy_bytes", trace.total("host_read_bytes") - read0)
         return pack, out["class_prob"]
 
 
-def _build_structures(out, host, edge, has_edge, single, cfg: MatchConfig, dev):
-    """The host-side builds from the one transfer (both neighbour grids and
-    the dense field) and their uploads, assembled into the ScenePack.
-    Object 0's probabilities are baked into the scoring structures only
-    when that is unambiguous (`single`: one probability map)."""
-    truncated = int(host[0])
-    host_valid = host[2].astype(bool)
-    host_pos = host[1].astype(np.float32)[host_valid]
-    host_nrm = host[3].astype(np.float32)[host_valid]
-    host_prob = host[4].astype(np.float32)[host_valid] if single else None
+def _build_structures(out, count, truncated, edge_t, has_edge, single, cfg: MatchConfig):
+    """Both neighbour grids and the dense field, built on the device of the
+    ingested lanes from their valid prefix (`count` lanes), assembled into
+    the ScenePack. Object 0's probabilities are baked into the scoring
+    structures only when that is unambiguous (`single`: one probability
+    map)."""
     if truncated > 0:
         from .utils.log import warn
 
@@ -226,15 +226,14 @@ def _build_structures(out, host, edge, has_edge, single, cfg: MatchConfig, dev):
             f"points — raise MatchConfig.max_scene_points",
             dropped=truncated, cap=cfg.max_scene_points,
         )
-    grid = build_neighbor_grid(host_pos, cell_size=cfg.distance_threshold,
-                               normal=host_nrm, prob=host_prob)
-    field = build_dense_field(host_pos, host_nrm, cfg.distance_threshold, prob=host_prob)
-    icp_grid = build_neighbor_grid(host_pos, cell_size=cfg.icp_max_corr_dist)
+    pos, nrm = out["pos"][:count], out["normal"][:count]
+    prob = out["class_prob"][0, :count] if single else None
     return ScenePack(
         pos=out["pos"], normal=out["normal"], rgb=out["rgb"],
         pixel=out["pixel"], class_prob=out["class_prob"][0],
-        edge_prob=out["edge_prob"], valid=out["valid"],
-        centroid=out["centroid"], grid=grid.to(dev), field=field.to(dev),
-        icp_grid=icp_grid.to(dev), edge_free=torch.from_numpy(edge == 255).to(dev),
-        has_edge=has_edge,
+        edge_prob=out["edge_prob"], valid=out["valid"], centroid=out["centroid"],
+        grid=build_neighbor_grid(pos, cell_size=cfg.distance_threshold, normal=nrm, prob=prob),
+        field=build_dense_field(pos, nrm, cfg.distance_threshold, prob=prob),
+        icp_grid=build_neighbor_grid(pos, cell_size=cfg.icp_max_corr_dist),
+        edge_free=edge_t == 255, has_edge=has_edge,
     )

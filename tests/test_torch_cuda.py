@@ -7,9 +7,11 @@ has the card and no jax (the suite's conftest.py imports jax, hence
 
 It holds the dense-gate and row-gather kernels to their plain versions
 bit for bit, the estimator on the card to the estimator on the CPU with
-every base in a dense congruent tier, and scene ingest and model
-preprocessing on the card to the same on the CPU."""
+every base in a dense congruent tier, and scene ingest (the grids and
+the field built on the card too) and model preprocessing on the card to
+the same on the CPU."""
 
+import dataclasses
 import os
 
 import numpy as np
@@ -178,6 +180,71 @@ def test_ingest_and_preprocess_card_equal_cpu(tmp_path):
         assert sorted(a) == sorted(b)
         for k in a:
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["ycb", "packed"])
+def test_scene_build_card_equal_cpu(tmp_path, monkeypatch, config):
+    """On one full-size benchmark frame of each preset, load_scene builds
+    both grids and the field on the card equal bit for bit to the CPU build
+    of the same ingested lanes; its only device syncs are its counted
+    reads, which move under 64 KB."""
+    import json
+    import warnings
+
+    from model_matching_tpu_torch.ops.densefield import build_dense_field
+    from model_matching_tpu_torch.ops.gridhash import build_neighbor_grid
+    from model_matching_tpu_torch.scene import load_scene
+
+    dev = _card()
+    bench = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                         "benchmark")
+    monkeypatch.syspath_prepend(bench)
+    import frames
+    import loops
+
+    with open(os.path.join(bench, "configs", f"{config}.json")) as f:
+        spec = json.load(f)
+    cfg = loops.match_config(spec["match"])
+    kind = spec["scene"]["kind"]
+    fr = frames.write_frame(str(tmp_path), kind, 0, 0, cfg.camera.as_tuple(),
+                            cfg.image_width, cfg.image_height, cfg.depth_scale,
+                            cfg.probability_scale, spec["scene"]["edge"])
+    rgb, depth, probs, edge = fr.paths(frames.object_names(kind))
+    load_scene(rgb, depth, probs[0], edge, cfg, device=dev)       # warm
+    mark = trace.mark()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            sc = load_scene(rgb, depth, probs[0], edge, cfg, device=dev)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    builders = ("gridhash.py", "densefield.py")
+    assert not [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+                if os.path.basename(w.filename) in builders]
+    entries = trace.snapshot(mark).entries
+    (build,) = [e.seq for e in entries if e.kind == "span" and e.name == "scene.build"]
+    reads = [e.n for e in entries if e.kind == "count" and e.parent == build
+             and e.name == "host_reads"]
+    (copied,) = [e.n for e in entries if e.kind == "count"
+                 and e.name == "scene.build_copy_bytes"]
+    assert 1 <= len(reads) <= 16 and 0 < copied < 64 << 10
+    n = int(sc.count())
+    assert n > 5000
+    pos, nrm, prob = (t[:n].cpu() for t in (sc.pos, sc.normal, sc.class_prob))
+    cpu = dict(
+        grid=build_neighbor_grid(pos, cfg.distance_threshold, normal=nrm, prob=prob),
+        field=build_dense_field(pos, nrm, cfg.distance_threshold, prob=prob),
+        icp_grid=build_neighbor_grid(pos, cfg.icp_max_corr_dist))
+    for name, want in cpu.items():
+        got = getattr(sc, name)
+        for f in dataclasses.fields(want):
+            a, b = getattr(got, f.name), getattr(want, f.name)
+            if isinstance(b, torch.Tensor):
+                assert a.device.type == "cuda" and torch.equal(a.cpu(), b), (name, f.name)
+            else:
+                assert a == b, (name, f.name)
 
 
 @pytest.mark.cuda

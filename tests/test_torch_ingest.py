@@ -262,6 +262,37 @@ def test_scene_structures_equal_on_equal_inputs(scenes):
                 assert a == b == c, (name, f.name)
 
 
+def test_scene_build_reads_only_sizes(scenes):
+    """load_scene builds the grids and the field where the ingested lanes
+    are: the scene is not read back, only sizes (at most 8 values a read),
+    every read counted with its bytes, and `scene.build_copy_bytes` counts
+    what the build's reads moved (a few hundred bytes; the read-back of
+    the lanes was ~0.5 MB at this size)."""
+    from model_matching_tpu_torch.utils import trace
+
+    _js, ts, cfg, paths = scenes
+    mark = trace.mark()
+    sc = tscene.load_scene(*paths, None, cfg, device="cpu")
+    entries = trace.snapshot(mark).entries
+    spans = {e.name: e for e in entries if e.kind == "span"}
+    build = spans["scene.build"].seq
+
+    def counts(name, parent=None):
+        return [e.n for e in entries if e.kind == "count" and e.name == name
+                and parent in (None, e.parent)]
+
+    sizes = counts("host_read_bytes")
+    assert max(sizes) <= 8 * 8
+    assert 1 <= len(counts("host_reads", build)) == len(counts("host_read_bytes", build)) <= 16
+    assert counts("scene.build_copy_bytes") == [sum(counts("host_read_bytes", build))]
+    assert 0 < sum(counts("host_read_bytes", build)) < 2048
+    for name in ("grid", "field", "icp_grid"):
+        a, b = getattr(sc, name), getattr(ts, name)
+        for f in dataclasses.fields(a):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            assert torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+
+
 def test_edge_map_marks_the_instance_path(scenes, tmp_path):
     """A scene with an edge map loads as has_edge, and the estimator takes
     the instance path on it (flood-fill segments, the prior decayed),

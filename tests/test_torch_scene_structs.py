@@ -1,6 +1,9 @@
-"""Scene query structures: the port's numpy builders equal the JAX
-package's array for array, and field_lookup plus the three restricted-NN
-queries return the same winners on the same points."""
+"""Scene query structures: the port's builders (on CPU tensors or numpy
+arrays) equal the JAX package's numpy builders array for array, and
+field_lookup plus the three restricted-NN queries return the same winners
+on the same points."""
+
+import dataclasses
 
 import numpy as np
 import jax.numpy as jnp
@@ -88,3 +91,94 @@ def test_dense_field_build_and_lookup(scene, baked):
     for a, b in zip(jdf.field_lookup(jf, jnp.asarray(q)),
                     tdf.field_lookup(tf, torch.from_numpy(q))):
         _eq(a, b)
+
+
+def _tie_scene():
+    """Exact distance ties: eight duplicated points, and points mirrored
+    about their field cell's centre, on a 1/64 lattice with eps = 1/4 and
+    the corner pinned by two anchors, so every coordinate and distance is
+    exact in float32."""
+    rng = np.random.default_rng(5)
+    eps, lo = 0.25, -1.5                    # lo = anchor min - 2 * eps
+    base = rng.integers(-40, 41, (120, 3)) / 64.0
+    cell = np.floor((base - lo) / eps)
+    centre = (cell + 0.5) * eps + lo
+    pos = np.concatenate([[[-1.0] * 3, [1.0] * 3], base, 2 * centre - base, base[:8]])
+    nrm = rng.normal(size=pos.shape)
+    prob = rng.uniform(0.1, 1.0, len(pos))
+    return pos.astype(np.float32), nrm.astype(np.float32), prob.astype(np.float32), eps
+
+
+def _build_case(case, scene):
+    """(pos, normal, prob, builder name, kwargs) of one case."""
+    pos, nrm, prob, _q = scene
+    if case == "ties":
+        return _tie_scene()
+    if case == "past-guards":
+        # a 3 m cube at 5 mm is 603^3 cells, over the cell map's guard
+        rng = np.random.default_rng(6)
+        far = rng.uniform(-1.5, 1.5, (40, 3)).astype(np.float32)
+        return far, nrm[:40], prob[:40], EPS
+    if case == "one-point":
+        return pos[:1], nrm[:1], prob[:1], EPS
+    return pos, nrm, prob, EPS
+
+
+_CASES = [
+    ("scene", "grid", dict(baked=True)),
+    ("scene", "grid", dict(baked=False)),
+    ("scene", "grid", dict(cell_cap=8)),
+    ("scene", "grid", dict(payload=False)),
+    ("scene", "field", dict(baked=True)),
+    ("scene", "field", dict(baked=False)),
+    ("ties", "grid", dict(baked=True)),
+    ("ties", "field", dict(baked=True)),
+    ("ties", "field", dict(baked=False)),
+    ("past-guards", "grid", dict(baked=True)),
+    ("one-point", "grid", dict(baked=True)),
+    ("one-point", "field", dict(baked=True)),
+]
+
+
+@pytest.mark.parametrize("case,kind,kw", [
+    pytest.param(*c, id="-".join([c[0], c[1]] + [f"{k}={v}" for k, v in c[2].items()]))
+    for c in _CASES])
+def test_tensor_builders_equal_numpy_builders(scene, case, kind, kw, monkeypatch):
+    """The builders on CPU tensors give the JAX package's numpy structures
+    field for field (dtype, shape and bits), including the lowest-index
+    tie-break, an explicit cap that truncates (and warns), the table-only
+    grid past the payload guards and a one-point scene."""
+    from model_matching_tpu_torch.utils import log
+
+    pos, nrm, prob, eps = _build_case(case, scene)
+    kw = dict(kw)
+    baked = kw.pop("baked", False)
+    warned = []
+    monkeypatch.setattr(log, "warn", lambda msg, **f: warned.append(msg))
+    t = torch.from_numpy
+    if kind == "grid":
+        extra = dict(normal=nrm, prob=prob) if baked else {}
+        want = jgh.build_neighbor_grid(pos, cell_size=eps, **extra, **kw)
+        got = tgh.build_neighbor_grid(t(pos), cell_size=eps,
+                                      **{k: t(v) for k, v in extra.items()}, **kw)
+    else:
+        want = jdf.build_dense_field(pos, nrm, eps, prob=prob if baked else None)
+        got = tdf.build_dense_field(t(pos), t(nrm), eps, prob=t(prob) if baked else None)
+    for f in dataclasses.fields(want):
+        a, b = getattr(want, f.name), getattr(got, f.name)
+        if a is None or b is None:
+            assert a is None and b is None, f.name
+        elif isinstance(b, torch.Tensor):
+            a = torch.from_numpy(np.array(a))
+            assert a.dtype == b.dtype and torch.equal(a, b), f.name
+        else:
+            assert a == b, f.name
+    assert (warned != []) == ("cell_cap" in kw)
+    if case == "past-guards":
+        assert got.payload is None and got.cell_map is None
+    if case == "ties" and kind == "field":
+        # the duplicates (the last eight points) lose every tie to their
+        # originals, which win somewhere
+        idx = got.rows[:, 6][got.rows[:, 7] != (-1.0 if baked else 0.0)]
+        assert not bool(torch.isin(idx, torch.arange(len(pos) - 8, len(pos)).float()).any())
+        assert bool(torch.isin(idx, torch.arange(2, 10).float()).any())
