@@ -1,0 +1,7 @@
+"""K2 (the row gather): share of its bound reached on rank 0's card in the traced requests, %."""
+
+import readers
+
+
+def read(run):
+    return readers.roofline(run, 'k2')

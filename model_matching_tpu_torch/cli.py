@@ -234,13 +234,12 @@ def _profiled(out_dir, dev, fn):
 
 
 def _sweep_devices(dev):
-    """The ranks of this process that a --sweep may shard over: every
-    visible card, or the one CPU."""
-    import torch
+    """The ranks of this process that a --sweep may shard over
+    (sharding.process_devices: the process's own card under torchrun,
+    every visible card otherwise, or the one CPU)."""
+    from .parallel import sharding
 
-    if dev.type == "cuda":
-        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    return [dev]
+    return sharding.process_devices(dev)
 
 
 def _sweep_mesh(dev, scene):
@@ -392,7 +391,10 @@ def cmd_stocs_single(argv):
         out_file = os.path.join(scene_out, f"best_pose_candidate_{args.object}.txt")
         os.makedirs(scene_out, exist_ok=True)
         _write_pose(out_file, best_w)
-        print(f"wrote {out_file} (sweep best lcp {best_lcp:.4f})")
+        where = (torch.device("cuda", torch.cuda.current_device())
+                 if dev.type == "cuda" else dev)
+        print(f"wrote {out_file} (sweep best lcp {best_lcp:.4f}; "
+              f"{stats.get('devices', 1)} ranks, this process on {where})")
         return 0
 
     result = _profiled(args.profile, dev,

@@ -16,16 +16,32 @@ process index x local + i, and each rank's random stream is folded from its
 global rank, so a result depends on the rank count D and on nothing else
 (not on how the ranks map to processes or devices).
 
+Under torchrun (one process a card) each process binds itself to the card
+``LOCAL_RANK`` names (``init_distributed``, ``local_card``), and a mesh made
+without devices is that one card (``default_devices``): four processes on
+four cards make a mesh of four ranks. A lone process keeps every visible
+card, and runs its ranks' shares one after another, which is slower than
+one card: launch multi-card sweeps with torchrun (``torchrun_env`` gives a
+process started by hand the same environment).
+
 The collectives (`_all_gather` and what reads its rank-major result: a
 sum, a max, the first rank holding the maximum; `_broadcast0`) are plain
 torch ops over the per-rank results within a process, and torch.distributed
-calls on host copies of them across processes (gloo: two processes on one
-card would share a GPU, which NCCL refuses). They move a few KB: a rank's
-pool is keep_local x (1 + 16 + 16) floats. The JAX package promotes its
-inputs to global arrays when the mesh spans processes (``_globalize``,
-``_globalize_hyp``); this program has no global arrays, since every
-process holds the packs whole and each rank reads them on its own device,
-so neither has a counterpart here.
+calls on host copies of them across processes. They move a few KB: a
+rank's pool is keep_local x (1 + 16 + 16) floats. The group is gloo's
+because processes may share a card (``dcn_worker.launch(2, 1)`` runs two on
+one), which NCCL refuses; that reason holds only for processes that share
+a card. Under torchrun, one process a card, gloo stays because the
+exchange is small: its host copy ends on a device synchronize that each
+chunk's gather needs anyway. The spans `sweep.gather` and
+`sweep.broadcast` and the counters `sharding.collectives` and
+`sharding.collective_bytes` (the bytes this process sent) show what the
+exchange costs.
+
+The JAX package promotes its inputs to global arrays when the mesh spans
+processes (``_globalize``, ``_globalize_hyp``); this program has no global
+arrays, since every process holds the packs whole and each rank reads
+them on its own device, so neither has a counterpart here.
 """
 
 from __future__ import annotations
@@ -70,6 +86,50 @@ def process_count() -> int:
     return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
+def local_card(env, n_cards: int) -> Optional[int]:
+    """The card a process of a torchrun group takes: ``LOCAL_RANK`` (from
+    the mapping `env`) modulo the `n_cards` cards in sight. None without a
+    ``LOCAL_RANK`` or without a card."""
+    local = env.get("LOCAL_RANK")
+    if local is None or n_cards <= 0:
+        return None
+    return int(local) % n_cards
+
+
+def _card_count() -> int:
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def default_devices() -> list:
+    """This process's ranks when none are given: in a torchrun group of
+    more than one process, one rank, the card ``local_card`` names;
+    otherwise every visible card. Raises without a card."""
+    n = _card_count()
+    if n == 0:
+        require("cuda")
+    if process_count() > 1 and "LOCAL_RANK" in os.environ:
+        return [torch.device("cuda", local_card(os.environ, n))]
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def process_devices(dev: torch.device) -> list:
+    """The ranks of this process on device `dev`, as the CLI's --sweep
+    shards over them: ``default_devices()`` on the card, `dev` alone on
+    the CPU."""
+    return default_devices() if dev.type == "cuda" else [dev]
+
+
+def torchrun_env(port: int, world: int, rank: int) -> dict:
+    """The variables torchrun gives process `rank` of `world` on one host
+    whose rendezvous is localhost:`port`: MASTER_ADDR, MASTER_PORT,
+    WORLD_SIZE, RANK, LOCAL_RANK, LOCAL_WORLD_SIZE, and OMP_NUM_THREADS 1
+    unless the caller's environment sets it (torchrun's default for several
+    processes a host)."""
+    return {"MASTER_ADDR": "localhost", "MASTER_PORT": str(port), "WORLD_SIZE": str(world),
+            "RANK": str(rank), "LOCAL_RANK": str(rank), "LOCAL_WORLD_SIZE": str(world),
+            "OMP_NUM_THREADS": os.environ.get("OMP_NUM_THREADS", "1")}
+
+
 def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None,
@@ -79,7 +139,11 @@ def init_distributed(coordinator_address: Optional[str] = None,
     arguments or, without them, by the environment torchrun sets
     (MASTER_ADDR and MASTER_PORT, WORLD_SIZE, RANK). A no-op returning 1
     when neither configures a group; a second call is a no-op too. A
-    process that waits more than `timeout` seconds for the others raises.
+    process that waits more than `timeout` seconds for the others, at the
+    rendezvous or in a collective, raises. A process that joins a group
+    with ``LOCAL_RANK`` in its environment is bound to the card
+    ``local_card`` names (``torch.cuda.set_device``), so that the default
+    ``cuda`` device of its ingest, packs and kernels is its own card.
     Returns the number of processes."""
     if dist.is_initialized():
         return dist.get_world_size()
@@ -97,6 +161,9 @@ def init_distributed(coordinator_address: Optional[str] = None,
         world_size=num_processes, rank=process_id,
         timeout=datetime.timedelta(seconds=timeout),
     )
+    card = local_card(env, _card_count())
+    if card is not None:
+        torch.cuda.set_device(card)
     return dist.get_world_size()
 
 
@@ -131,13 +198,12 @@ def _device(d) -> torch.device:
 
 
 def make_mesh(devices: Optional[Sequence] = None, axis: str = HYP_AXIS) -> Mesh:
-    """This process's ranks, one a device of `devices` (default: every
-    visible card); under torch.distributed the mesh spans every process of
-    the group, each of which must give as many ranks."""
+    """This process's ranks, one a device of `devices` (default:
+    ``default_devices()``, the bound card in a torchrun group, every visible
+    card otherwise); under torch.distributed the mesh spans every process
+    of the group, each of which must give as many ranks."""
     if devices is None:
-        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-        if not devices:
-            require("cuda")
+        devices = default_devices()
     devices = tuple(_device(d) for d in devices)
     if not devices:
         raise ValueError("a mesh needs at least one rank")
@@ -145,7 +211,9 @@ def make_mesh(devices: Optional[Sequence] = None, axis: str = HYP_AXIS) -> Mesh:
     if n_proc == 1:
         return Mesh(devices, axis)
     counts = [torch.zeros(1, dtype=torch.int64) for _ in range(n_proc)]
-    dist.all_gather(counts, torch.tensor([len(devices)]))
+    mine = torch.tensor([len(devices)])
+    _count_sent(mine)
+    dist.all_gather(counts, mine)
     if len({int(c) for c in counts}) != 1:
         raise ValueError(f"the processes give different rank counts: "
                          f"{[int(c) for c in counts]}")
@@ -155,6 +223,12 @@ def make_mesh(devices: Optional[Sequence] = None, axis: str = HYP_AXIS) -> Mesh:
 # ---------------------------------------------------------------------------
 # collectives
 # ---------------------------------------------------------------------------
+
+def _count_sent(host: torch.Tensor) -> None:
+    """Count one collective call and the bytes this process sends in it."""
+    trace.count("sharding.collectives")
+    trace.count("sharding.collective_bytes", host.numel() * host.element_size())
+
 
 def _flat(*tensors) -> torch.Tensor:
     """One float64 vector of the tensors (exact for int32 and float32)."""
@@ -172,6 +246,7 @@ def _all_gather(mesh: Mesh, parts, device) -> torch.Tensor:
     trace.count("host_reads")
     host = local.cpu()
     out = [torch.empty_like(host) for _ in range(mesh.process_count)]
+    _count_sent(host)
     dist.all_gather(out, host)
     return torch.cat(out).to(device)
 
@@ -185,6 +260,10 @@ def _broadcast0(mesh: Mesh, tensors):
     for t in tensors:
         trace.count("host_reads")
         host = t.cpu().to(torch.uint8 if t.dtype == torch.bool else t.dtype).contiguous()
+        if mesh.process_index == 0:
+            _count_sent(host)
+        else:
+            trace.count("sharding.collectives")
         dist.broadcast(host, src=0)
         out.append(host.to(t.device, t.dtype))
     return out
@@ -310,14 +389,13 @@ def _pool_part(scores, transforms, world, valid, n_slot_valid, pair_max,
 def _reduce_pools(g, k: int):
     """The gathered [D, k * 33 + 4] chunk parts -> the rank-major pool
     (scores [D * k], transforms and world transforms [D * k, 4, 4]) and the
-    counters: valid hypotheses summed, the per-rank maxima of the
+    counters: each rank's valid hypotheses [D], the per-rank maxima of the
     congruent-valid slots and of the pair count, the shortfall summed."""
     s = g[:, :k].reshape(-1).to(torch.float32)
     t = g[:, k:17 * k].reshape(-1, 4, 4).to(torch.float32)
     w = g[:, 17 * k:33 * k].reshape(-1, 4, 4).to(torch.float32)
     c = g[:, 33 * k:].to(torch.int32)
-    return s, t, w, c[:, 0].sum(dtype=torch.int32), c[:, 1].max(), c[:, 2].max(), \
-        c[:, 3].sum(dtype=torch.int32)
+    return s, t, w, c[:, 0], c[:, 1].max(), c[:, 2].max(), c[:, 3].sum(dtype=torch.int32)
 
 
 def run_sweep_sharded(
@@ -341,7 +419,10 @@ def run_sweep_sharded(
     rank-major, and the pooled winners are ICP-polished and clustered
     (estimator.finish_sweep_pool). Same return shape as
     StocsEstimator.run_sweep: (best_lcp, best_world_transform,
-    clustered_transforms, clustered_lcp, stats), stats with `devices`. A
+    clustered_transforms, clustered_lcp, stats), stats with `devices`,
+    `rank_hypotheses` (each global rank's valid hypotheses as the pools'
+    reduction took them in) and `local_hypotheses` (this process's ranks'
+    own counts, before the gather), both over the chunks of this call. A
     `total_bases` that is not a multiple of `chunk` is rounded up.
 
     Class path: chunk ci's key is fold_in(PRNGKey(seed), ci), rank r's
@@ -360,7 +441,23 @@ def run_sweep_sharded(
     run_sweep: the checkpoint (the one-device format, version 3) also
     records D, and resuming it under another D, or one-device, is refused
     (the rank streams would differ); a resume is bit-identical to the
-    uninterrupted sweep."""
+    uninterrupted sweep.
+
+    Spans, under the names run_sweep uses: `sweep.run` around the call,
+    `sweep.chunk` around each chunk, `sweep.finish` around the tail; inside
+    a chunk `sweep.gather` (the gather through the pool's reduction: across
+    processes it ends on a host copy, so it holds the wait for the slowest
+    process) and, on the instance path, `sweep.broadcast`."""
+    with trace.span("sweep.run"):
+        return _run_sweep_sharded(
+            mesh, model, scene, cfg, total_bases, chunk, keep_per_chunk, seed,
+            coarse_to_fine, verbose, checkpoint_path, checkpoint_every,
+            stop_after_chunks)
+
+
+def _run_sweep_sharded(mesh, model, scene, cfg, total_bases, chunk,
+                       keep_per_chunk, seed, coarse_to_fine, verbose,
+                       checkpoint_path, checkpoint_every, stop_after_chunks):
     use_instance = scene.has_edge
     n_dev = mesh.size
     if chunk % n_dev:
@@ -394,6 +491,7 @@ def run_sweep_sharded(
     pool_s, pool_t, pool_w = [], [], []
     chunk_valid, chunk_slot_valid, pair_maxes = [], [], []
     shortfalls, unconverged = [], []
+    rank_valid, local_valid = [], []    # this call's chunks: [D], [local]
     start_chunk = 0
     resumed_unconverged = 0
     resumed_pair_max = 0
@@ -455,63 +553,70 @@ def run_sweep_sharded(
 
     stopped_at = None
     for ci in range(start_chunk, n_chunks):
-        key = rng.fold_in(key0, ci)
-        k_sample, k_cong = rng.split(key)
-        parts = []
-        if use_instance:
-            # the sequential sampler on the whole chunk, as the one-device
-            # sweep runs it: the same bases and decayed prior
-            inst = _phase_sample_instance(k_sample, model.table, scene,
-                                          class_prob, cfg_chunk, chunk)
-            chunk_state = _broadcast0(mesh, (
-                inst.indices, inst.invariant1, inst.invariant2, inst.valid,
-                inst.class_prob, inst.fill_converged))
-            del inst
-            class_prob, fill_conv = chunk_state[4], chunk_state[5]
-            unconverged.append((~fill_conv).sum(dtype=torch.int32))
-            for i, ((m, s, _b), (bi, i1, i2, bv, cp)) in enumerate(zip(
-                    ranks, _on_ranks(mesh, *chunk_state[:5]))):
-                r = mesh.rank(i)
-                blk = slice(r * b_local, (r + 1) * b_local)
-                bases = sampling.SampledBases(bi[blk], i1[blk], i2[blk], bv[blk])
-                parts.append(_pool_part(*_phases_234(
-                    rng.fold_in(k_cong, r), m, s, cp, bases, cfg_chunk,
-                    coarse_to_fine, d2, use_baked=False), keep_local))
-        else:
-            for i, (m, s, b) in enumerate(ranks):
-                parts.append(_pool_part(*_local_hypotheses(
-                    rng.fold_in(key, mesh.rank(i)), m, s, s.class_prob, b,
-                    cfg_chunk, b_local, coarse_to_fine, d2_implied=d2),
-                    keep_local))
-        k = (parts[0].shape[0] - 4) // 33         # the pools' length
-        s_, t_, w_, nv, slot_max, pair_mx, short = _reduce_pools(
-            _all_gather(mesh, parts, home), k)
-        pool_s.append(s_)
-        pool_t.append(t_)
-        pool_w.append(w_)
-        # device-side counters, read once after the loop
-        chunk_valid.append(nv)
-        chunk_slot_valid.append(slot_max)
-        pair_maxes.append(pair_mx)
-        shortfalls.append(short)
-        done_this_call = ci + 1 - start_chunk
-        if (stop_after_chunks is not None
-                and done_this_call >= stop_after_chunks
-                and ci + 1 < n_chunks):
-            stopped_at = ci + 1
-            if checkpoint_path:
+        with trace.span("sweep.chunk"):
+            key = rng.fold_in(key0, ci)
+            k_sample, k_cong = rng.split(key)
+            parts = []
+            if use_instance:
+                # the sequential sampler on the whole chunk, as the one-device
+                # sweep runs it: the same bases and decayed prior
+                inst = _phase_sample_instance(k_sample, model.table, scene,
+                                              class_prob, cfg_chunk, chunk)
+                with trace.span("sweep.broadcast"):
+                    chunk_state = _broadcast0(mesh, (
+                        inst.indices, inst.invariant1, inst.invariant2, inst.valid,
+                        inst.class_prob, inst.fill_converged))
+                del inst
+                class_prob, fill_conv = chunk_state[4], chunk_state[5]
+                unconverged.append((~fill_conv).sum(dtype=torch.int32))
+                for i, ((m, s, _b), (bi, i1, i2, bv, cp)) in enumerate(zip(
+                        ranks, _on_ranks(mesh, *chunk_state[:5]))):
+                    r = mesh.rank(i)
+                    blk = slice(r * b_local, (r + 1) * b_local)
+                    bases = sampling.SampledBases(bi[blk], i1[blk], i2[blk], bv[blk])
+                    parts.append(_pool_part(*_phases_234(
+                        rng.fold_in(k_cong, r), m, s, cp, bases, cfg_chunk,
+                        coarse_to_fine, d2, use_baked=False), keep_local))
+            else:
+                for i, (m, s, b) in enumerate(ranks):
+                    parts.append(_pool_part(*_local_hypotheses(
+                        rng.fold_in(key, mesh.rank(i)), m, s, s.class_prob, b,
+                        cfg_chunk, b_local, coarse_to_fine, d2_implied=d2),
+                        keep_local))
+            k = (parts[0].shape[0] - 4) // 33         # the pools' length
+            local_valid.append(torch.stack([p[33 * k].to(home) for p in parts]))
+            with trace.span("sweep.gather"):
+                s_, t_, w_, nv, slot_max, pair_mx, short = _reduce_pools(
+                    _all_gather(mesh, parts, home), k)
+            pool_s.append(s_)
+            pool_t.append(t_)
+            pool_w.append(w_)
+            # device-side counters, read once after the loop
+            rank_valid.append(nv)
+            chunk_valid.append(nv.sum(dtype=torch.int32))
+            chunk_slot_valid.append(slot_max)
+            pair_maxes.append(pair_mx)
+            shortfalls.append(short)
+            done_this_call = ci + 1 - start_chunk
+            if (stop_after_chunks is not None
+                    and done_this_call >= stop_after_chunks
+                    and ci + 1 < n_chunks):
+                stopped_at = ci + 1
+                if checkpoint_path:
+                    save_ckpt(ci + 1)
+                break
+            if (checkpoint_path and ci + 1 < n_chunks
+                    and done_this_call % max(1, checkpoint_every) == 0):
                 save_ckpt(ci + 1)
-            break
-        if (checkpoint_path and ci + 1 < n_chunks
-                and done_this_call % max(1, checkpoint_every) == 0):
-            save_ckpt(ci + 1)
 
     completed = stopped_at is None
-    h_unconv, h_nvs, h_slvs, h_pmx, h_short = _to_host(
+    h_unconv, h_nvs, h_slvs, h_pmx, h_short, h_rank, h_local = _to_host(
         total(unconverged, resumed_unconverged),
         torch.stack(chunk_valid) if chunk_valid else i32([0]),
         torch.stack(chunk_slot_valid) if chunk_slot_valid else i32([0]),
         running_pair_max(), total(shortfalls),
+        torch.stack(rank_valid).sum(0) if rank_valid else i32([0] * n_dev),
+        torch.stack(local_valid).sum(0) if local_valid else i32([0] * mesh.local),
     )
     n_unconverged = int(h_unconv)
     if n_unconverged:
@@ -556,7 +661,9 @@ def run_sweep_sharded(
         with contextlib.suppress(FileNotFoundError):
             os.remove(checkpoint_path)
     processed = (stopped_at if stopped_at is not None else n_chunks) * chunk
-    extra = {"devices": n_dev, "completed": completed}
+    extra = {"devices": n_dev, "completed": completed,
+             "rank_hypotheses": [int(v) for v in h_rank],
+             "local_hypotheses": [int(v) for v in h_local]}
     if has_pair_max:
         extra["pair_count_max"] = pair_max
     if not completed:
