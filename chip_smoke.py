@@ -71,9 +71,12 @@ Phases, in order; any failure exits nonzero and prints no result:
              valid base's four points inside its own segment mask and none
              on an edge pixel, the count of unconverged fills printed, and
              both ways of taking the cached-mask branch timed (equal
-             outputs). The recorded launches are held against the plain
-             versions bit for bit (the dense gate on the first two and the
-             last base of a launch). Then at 160x120, 16 bases, a 1 cm
+             outputs). Every sampler call, the command's included, must
+             replay 99 of its 100 bases from CUDA graphs (3 captured for
+             the host-read branch, 1 for the select branch); sample_bases
+             seconds and the counters are printed. The recorded launches
+             are held against the plain versions bit for bit (the dense
+             gate on the first two and the last base of a launch). Then at 160x120, 16 bases, a 1 cm
              voxel, 4,096 points, 2,048 pairs per bin and 64 sets per base
              the port on the card against the port on the CPU: equal
              sampled bases, segment masks and decayed prior, the same best
@@ -178,7 +181,9 @@ Phases, in order; any failure exits nonzero and prints no result:
              a live mask that has dead tiles (its live share printed); the
              pose on the scene and on one of the boxes; every dense-gate
              launch equal to the plain version (first two and last base)
-             and timed beside its bound; two top-tier bases alone (one-base
+             and timed beside its bound; the sampler's 100 bases, 99 of
+             them replayed from its 3 CUDA graphs (sample_bases seconds and
+             the counters printed); two top-tier bases alone (one-base
              launches run blocks of 112 rows, which straddle a live and a
              dead 256-row P tile) equal too; every row gather equal to its
              plain version; at full width the sampler on the CPU equal to
@@ -195,7 +200,8 @@ Phases, in order; any failure exits nonzero and prints no result:
              checked; the pose on a box); an estimator run with
              instance_block_size=8 (a decay exponent of at least 2; its
              decayed prior and masks equal to the CPU sampler's bit for
-             bit; sampling's ms and kernels a base beside block size 1).
+             bit; sampling's ms and operators dispatched a base beside
+             block size 1, whose graph replays dispatch none).
              Linemod: the shell written in millimetres
              (synthetic.write_synthetic_scene(preset="linemod")) to
              build/chip_smoke_linemod/, model-preprocess and stocs-single
@@ -751,6 +757,24 @@ def _kernel_launches(before=None):
     return now if before is None else {k: v - before[k] for k, v in now.items()}
 
 
+def _graph_counts(before=None):
+    """The instance sampler's CUDA graphs captured and bases replayed (the
+    `instance.graph_captures` and `instance.graph_replays` counters), since
+    the counts `before` if given."""
+    from model_matching_tpu_torch.utils import trace
+
+    now = {k: trace.total(f"instance.graph_{k}") for k in ("captures", "replays")}
+    return now if before is None else {k: v - before[k] for k, v in now.items()}
+
+
+def _check_graph_counts(counts, num_bases, captures, where):
+    """A sequential sampler call on the card replays every base after the
+    first from `captures` graphs."""
+    want = {"captures": captures, "replays": num_bases - 1}
+    if counts != want:
+        raise AssertionError(f"{where}: graph counters {counts}, expected {want}")
+
+
 def _launches(torch, fn):
     """Torch operators that one call of `fn` dispatches, views and
     wrapped Python scalars aside: one device kernel each on the card."""
@@ -1271,12 +1295,12 @@ def _instance_phase(torch, dev, dense_gate, dense_gate_reference, row_gather):
         raise AssertionError("model-preprocess failed")
     log = _log_events()
     gathers, gates = _record_gathers(), _record_gates()
-    k_before = _kernel_launches()
+    k_before, g_before = _kernel_launches(), _graph_counts()
     t0 = time.perf_counter()
     rc = cli.main(["stocs-single", scene_dir, obj, "--repo-path", root,
                    "--cluster", "--heatmap"])
     t_single = time.perf_counter() - t0
-    counts = _kernel_launches(k_before)
+    counts, graphs = _kernel_launches(k_before), _graph_counts(g_before)
     gathers.stop()
     gates.stop()
     log.stop()
@@ -1286,7 +1310,9 @@ def _instance_phase(torch, dev, dense_gate, dense_gate_reference, row_gather):
     print(f"instance: stocs-single {t_single:.3f} s (first run on this scene); launches "
           f"{json.dumps(counts)}; phases_ms {json.dumps(run['timings_ms'])}; best_lcp "
           f"{run['best_lcp']:.6f}, {run['bases']} bases, {run['hypotheses']} hypotheses; "
-          f"unconverged flood fills {run['unconverged_fills']}")
+          f"unconverged flood fills {run['unconverged_fills']}; sample_bases "
+          f"{run['timings_ms']['sample_bases'] / 1e3:.4f} s, graphs {json.dumps(graphs)}")
+    _check_graph_counts(graphs, cfg.number_of_bases, 3, "instance stocs-single")
     for w in log.warnings:
         print(f"warning logged: {w}")
     if min(counts.values()) <= 0:
@@ -1338,11 +1364,14 @@ def _instance_phase(torch, dev, dense_gate, dense_gate_reference, row_gather):
     walls, outs = {"read": [], "select": []}, {}
     for _ in range(4):
         for branch in walls:
+            g_before = _graph_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             outs[branch] = sample(branch)
             torch.cuda.synchronize()
             walls[branch].append(time.perf_counter() - t0)
+            _check_graph_counts(_graph_counts(g_before), cfg.number_of_bases,
+                                3 if branch == "read" else 1, f"instance {branch}")
     timed = {k: sorted(v[1:])[1] for k, v in walls.items()}
     for a, b in zip(outs["read"], outs["select"]):
         if not torch.equal(a, b):
@@ -1357,7 +1386,8 @@ def _instance_phase(torch, dev, dense_gate, dense_gate_reference, row_gather):
           f"{spread['read']}, fill always and select "
           f"{timed['select'] / n_b * 1e3:.4f} ms a base {spread['select']}; "
           f"{int(s.valid.sum())} valid bases, {distinct} distinct segments, "
-          f"{int((~s.fill_converged).sum())} unconverged fills")
+          f"{int((~s.fill_converged).sum())} unconverged fills; each call replayed "
+          f"{n_b - 1} bases from graphs (3 captured for read, 1 for select)")
     live = scene.valid
     if bool((s.class_prob[live] > scene.class_prob[live]).any()):
         raise AssertionError("the decayed prior rose somewhere")
@@ -1405,9 +1435,10 @@ def _instance_phase(torch, dev, dense_gate, dense_gate_reference, row_gather):
         ests[name] = est_mod.StocsEstimator(m, sc, small_cfg)
         res[name] = (inst, ests[name].run(verbose=False))
     (i_c, r_c), (i_g, r_g) = res["cpu"], res["cuda"]
-    same = (torch.equal(i_c.indices, i_g.indices.cpu())
-            and torch.equal(i_c.valid, i_g.valid.cpu())
-            and torch.equal(ests["cpu"].seg_masks, ests["cuda"].seg_masks.cpu())
+    for f in i_c._fields:
+        if not torch.equal(getattr(i_c, f), getattr(i_g, f).cpu()):
+            raise AssertionError(f"instance: the sampler's {f} differs card against CPU")
+    same = (torch.equal(ests["cpu"].seg_masks, ests["cuda"].seg_masks.cpu())
             and torch.equal(ests["cpu"].class_prob, ests["cuda"].class_prob.cpu()))
     print(f"160x120, 16 bases, |S| = {int(sc_cpu.count())}: card against CPU: sampled "
           f"bases, masks and decayed prior equal: {same}; best_index cpu {r_c.best_index} "
@@ -1419,7 +1450,7 @@ def _instance_phase(torch, dev, dense_gate, dense_gate_reference, row_gather):
     return dict(counts, gates=gate_rows, gate_max_abs_err=gate_rows["max_abs_err"],
                 gathers=gather_rows, gather_max_abs_err=gather_err,
                 sampling_ms_per_base={k: v / n_b * 1e3 for k, v in timed.items()},
-                phases_ms=run["timings_ms"])
+                phases_ms=run["timings_ms"], graphs=graphs)
 
 
 def _sweep_phase(torch, dev, dense_gate, dense_gate_reference, row_gather):
@@ -1837,8 +1868,15 @@ def _sharded_phase(torch, dev, dense_gate, dense_gate_reference, row_gather, mul
     t0 = time.perf_counter()
     alone = dcn_worker.run_workload(make_mesh([dev] * 2), dev)
     t_alone = time.perf_counter() - t0
-    keys = [k for k in alone if k != "global_devices"]
-    agree = all(procs[0][k] == procs[1][k] == alone[k] for k in keys)
+    # what a process counts of its own (its collectives and bytes, its
+    # ranks' hypotheses before the gather) differs with the layout; the
+    # answers and the reduction's counts do not
+    own = ("global_devices", "collectives", "collective_bytes", "sweep_local_hyp")
+    keys = [k for k in alone if k not in own]
+    agree = (all(procs[0][k] == procs[1][k] == alone[k] for k in keys)
+             and [p["process_id"] for p in procs] == [0, 1]
+             and procs[0]["sweep_local_hyp"] + procs[1]["sweep_local_hyp"]
+             == alone["sweep_local_hyp"])
     print(f"dcn_worker.launch(2, 1) on {dev} ({gpu}): {t_launch:.3f} s (processes started, "
           f"joined over gloo, workload run); one process of 2 ranks {t_alone:.3f} s; both "
           f"processes equal to it: {agree} (step_best {alone['step_best']:.6f}, sweep_best "
@@ -2191,7 +2229,7 @@ def _packed_phase(torch, dev, dense_gate, dense_gate_reference, row_gather):
         return out
 
     est_mod._phase_sample_instance, est_mod._run_congruent = sample, cong
-    k_before = _kernel_launches()
+    k_before, g_before = _kernel_launches(), _graph_counts()
     try:
         t0 = time.perf_counter()
         rc = cli.main(["stocs-single", scene_dir, obj, "--repo-path", root,
@@ -2202,7 +2240,7 @@ def _packed_phase(torch, dev, dense_gate, dense_gate_reference, row_gather):
         gathers.stop()
         gates.stop()
         log.stop()
-    counts = _kernel_launches(k_before)
+    counts, graphs = _kernel_launches(k_before), _graph_counts(g_before)
     if rc != 0:
         raise AssertionError("stocs-single --preset packed failed")
     run = log.last("stocs_run")
@@ -2216,9 +2254,11 @@ def _packed_phase(torch, dev, dense_gate, dense_gate_reference, row_gather):
           f"{json.dumps(counts)}; phases_ms {json.dumps(run['timings_ms'])}; best_lcp "
           f"{run['best_lcp']:.6f}, {run['bases']} bases, {run['hypotheses']} hypotheses; "
           f"pair_count_max {pair_max}, selection_shortfall {short}, unconverged fills "
-          f"{run['unconverged_fills']}")
+          f"{run['unconverged_fills']}; sample_bases "
+          f"{run['timings_ms']['sample_bases'] / 1e3:.4f} s, graphs {json.dumps(graphs)}")
     if min(counts.values()) <= 0:
         raise AssertionError(f"the packed path missed a kernel: {counts}")
+    _check_graph_counts(graphs, cfg.number_of_bases, 3, "packed stocs-single")
     top = [(a, kw) for a, kw in gates.calls
            if a[2].shape[1] == lanes and kw.get("live") is not None]
     if not top:
@@ -2300,7 +2340,7 @@ def _packed_phase(torch, dev, dense_gate, dense_gate_reference, row_gather):
                 gates=gate_rows, launch_rows=launch_rows,
                 gate_max_abs_err=gate_rows["max_abs_err"], gathers=gather_rows,
                 gather_max_abs_err=gather_err, phases_ms=run["timings_ms"],
-                wall_s=t_single, small=small)
+                graphs=graphs, wall_s=t_single, small=small)
 
 
 def densest_bin_union(table):
@@ -2521,8 +2561,8 @@ def _packed_block_mode(torch, dev, dense_gate, dense_gate_reference, row_gather,
     """instance_block_size=8 on the packed scene: an estimator run on the
     card, its dense-gate launches and row gathers held to their plain
     versions, its decayed prior equal to the CPU's bit for bit (the decay's
-    power is fmath.pow), and sampling's ms and kernels a base beside block
-    size 1."""
+    power is fmath.pow), and sampling's ms and operators dispatched a base
+    beside block size 1."""
     import dataclasses
 
     import numpy as np
@@ -2592,16 +2632,17 @@ def _packed_block_mode(torch, dev, dense_gate, dense_gate_reference, row_gather,
     for block in (1, 8):
         n = cfg.number_of_bases
         secs, _ = _median_wall(torch, sampling(block, n))
-        kernels = _launches(torch, sampling(block, 16)) / 16
-        out[block] = {"ms_per_base": secs / n * 1e3, "kernels_per_base": kernels}
+        ops = _launches(torch, sampling(block, 16)) / 16
+        out[block] = {"ms_per_base": secs / n * 1e3, "ops_dispatched_per_base": ops}
     print(f"block mode ({_gpu_name_and_limit()}): instance_block_size=8 estimator run "
           f"{wall * 1e3:.3f} ms (first), best_lcp {res.best_lcp:.6f}; launches "
           f"{json.dumps(counts)}; decay exponents up to {top_exp:g}; decayed prior and "
           f"masks equal to the CPU's bit for bit (CPU sampler {t_cpu:.3f} s); sampling, "
           f"warm median of 3, {cfg.number_of_bases} bases: block 1 "
-          f"{out[1]['ms_per_base']:.4f} ms a base, {out[1]['kernels_per_base']:.1f} "
-          f"kernels a base; block 8 {out[8]['ms_per_base']:.4f} ms a base, "
-          f"{out[8]['kernels_per_base']:.1f} kernels a base")
+          f"{out[1]['ms_per_base']:.4f} ms a base, {out[1]['ops_dispatched_per_base']:.1f} "
+          f"operators dispatched from the host a base (its graph replays dispatch none); "
+          f"block 8 {out[8]['ms_per_base']:.4f} ms a base, "
+          f"{out[8]['ops_dispatched_per_base']:.1f} a base (a kernel each)")
     return dict(counts, wall_ms=wall * 1e3, largest_exponent=top_exp, sampling=out,
                 gates=gate_rows, gate_max_abs_err=gate_rows["max_abs_err"],
                 gathers=gather_rows, gather_max_abs_err=gather_err)

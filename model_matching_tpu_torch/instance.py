@@ -11,7 +11,8 @@ pixel (a [B + 1, H, W] buffer, written row by row in place).
 
 The cross-base dependence makes the path sequential: one Python loop over
 bases with the decayed probabilities, the previous segment, the claim
-buffer and the mask cache as state. PyTorch compiles no trace, so the JAX
+buffer and the mask cache as state, on the card replayed as CUDA graphs
+base after base. PyTorch compiles no trace, so the JAX
 package's whole-scan sampler and its host-driven stepper are one loop
 here (``sample_instance_bases`` and ``sample_instance_bases_stepwise``
 give the same outputs); the Gumbel noise of a block of bases is made in
@@ -21,6 +22,7 @@ with its documented divergences.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -72,6 +74,64 @@ def _finish(pos, raws, oks, class_prob, masks, fills) -> InstanceSamples:
     )
 
 
+def _cached_id(seg_buffer, seed_rc):
+    """[K] int32: the claim (base number, 0 for none) of each of the [K, 2]
+    seed pixels in the [H, W] claim buffer, gathered at row * W + col
+    (indexing by 0-dim device tensors would read them on the host)."""
+    flat = seed_rc[:, 0].long() * seg_buffer.shape[1] + seed_rc[:, 1].long()
+    return seg_buffer.reshape(-1)[flat]
+
+
+@functools.lru_cache(maxsize=None)
+def _capture_resources(device: str):
+    """(side stream, pool, anchor graph) for a device's CUDA graphs, made
+    once per device. The allocator reuses a pool's free blocks only on the
+    stream that made them, so every capture runs on this one stream. It
+    frees a pool that no graph holds only on an empty_cache or a failed
+    allocation, so a pool a call would pile up; the anchor, a one-kernel
+    graph kept here, holds this one, and each call's captures reuse the
+    blocks the last call's freed."""
+    with torch.cuda.device(device):
+        stream, pool = torch.cuda.Stream(), torch.cuda.graph_pool_handle()
+        anchor = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            anchor.capture_begin(pool=pool)
+            try:
+                torch.zeros(1, device=device)
+            finally:
+                anchor.capture_end()
+    return stream, pool, anchor
+
+
+class _Graphs:
+    """CUDA graphs of the given parts of a base, captured in order on the
+    device's side stream into one shared pool, so a later part reads the
+    outputs an earlier one leaves there; replayed on the current stream.
+    The graphs go with this object, and their blocks back to the pool."""
+
+    def __init__(self, dev, parts):
+        stream, pool, _anchor = _capture_resources(str(dev))
+        current = torch.cuda.current_stream(dev)
+        self._graphs = {}
+        stream.wait_stream(current)
+        # capture_begin rather than the torch.cuda.graph context, whose
+        # entry empties the allocator's cache at every capture
+        with torch.cuda.stream(stream):
+            for name, fn in parts.items():
+                graph = torch.cuda.CUDAGraph()
+                graph.capture_begin(pool=pool)
+                try:
+                    fn()
+                finally:
+                    graph.capture_end()
+                self._graphs[name] = graph
+                trace.count("instance.graph_captures")
+        current.wait_stream(stream)
+
+    def __call__(self, name):
+        self._graphs[name].replay()
+
+
 def sample_instance_bases_stepwise(
     key: torch.Tensor,
     table: PPFTable,
@@ -98,7 +158,17 @@ def sample_instance_bases_stepwise(
     base's cached mask; otherwise it flood-fills. `cache_branch` picks how
     the loop takes that data-dependent branch: "read" reads the claim on
     the host (one device sync per base, a fill only when needed), "select"
-    fills always and selects with torch.where (no sync). Same outputs."""
+    fills always and selects with torch.where (no sync). Same outputs.
+
+    A base runs in parts (`pre`: the decay, round 1, its segment's radius
+    and the claim; the fill; `post`: rounds 2-4 and the output rows) that
+    update state allocated once, the base number included, in place and
+    without a host read. On a CUDA device with fixed flood sweeps every
+    base after the first replays CUDA graphs of the parts, captured once
+    a call after the first base has run them eagerly and made the
+    constants they read: the same kernels, so the same bits, at a fraction
+    of the launch cost. A fill that sweeps to its fixpoint reads the host
+    every sweep, so without fixed sweeps every base runs eagerly."""
     if cache_branch not in ("read", "select"):
         raise ValueError(f"cache_branch must be 'read' or 'select', got {cache_branch!r}")
     dev = pos.device
@@ -106,30 +176,31 @@ def sample_instance_bases_stepwise(
     n = pos.shape[0]
     arange_n = torch.arange(n, dtype=torch.int32, device=dev)
     disp = torch.tensor(dispersion, dtype=torch.float32, device=dev)
-    true = torch.ones((), dtype=torch.bool, device=dev)
     prow, pcol = pixel[:, 0].long(), pixel[:, 1].long()
 
     class_prob = class_prob0.clone()
     prev_in = torch.zeros(n, dtype=torch.bool, device=dev)   # in the previous segment
-    seg_buffer = torch.zeros((h, w), dtype=torch.int32, device=dev)
+    seg_buffer = torch.zeros((h, w), dtype=torch.int32, device=dev)  # claims
     masks = torch.zeros((num_bases + 1, h, w), dtype=torch.bool, device=dev)
-    keys = _base_keys(key, num_bases)
-    raws, oks, fills = [], [], []
-    noise = None
-    for b in range(num_bases):
-        if b % block == 0:
-            noise = rng.gumbel_rows(
-                keys[b:b + block].reshape(-1, 2), n, dev).reshape(-1, 4, 1, n)
-        g = noise[b % block]
-        base_num = b + 1
+    seg = torch.zeros((h, w), dtype=torch.bool, device=dev)  # this base's segment
+    fill_ok = torch.zeros(1, dtype=torch.bool, device=dev)
+    noise = torch.empty((min(block, num_bases), 4, 1, n), dtype=torch.float32,
+                        device=dev)
+    row = torch.zeros(1, dtype=torch.int64, device=dev)      # base number - 1
+    raws = torch.zeros((num_bases, 4), dtype=torch.int32, device=dev)
+    oks = torch.zeros(num_bases, dtype=torch.bool, device=dev)
+    fills = torch.zeros(num_bases, dtype=torch.bool, device=dev)
+    r1 = {}                                                  # what pre hands on
 
+    def pre():
         # cross-base dispersion decay inside the previous segment; this
         # mutates the carried class_prob, one float32 multiply a base
-        class_prob = torch.where(prev_in & valid, class_prob * disp, class_prob)
+        class_prob.copy_(torch.where(prev_in & valid, class_prob * disp, class_prob))
 
         probs = torch.where(valid, class_prob, 0.0)
         probs = flood.prune_edge_points(probs, edge_prob)[None, :]
         log_w = sampling.log_weights(probs)      # once for the four draws
+        g = noise.index_select(0, row % block)[0]            # [4, 1, N]
         idx1, ok1 = _draw_rows(g[0], probs, log_w)
 
         # round-1 PPF mask and the largest feasible pixel distance
@@ -138,38 +209,36 @@ def sample_instance_bases_stepwise(
         probs = torch.where(exists1 & (arange_n != idx1[:, None]), probs, 0.0)
         seed_rc = pixel[idx1.long()]                         # [1, 2]
         pix_d = _pixel_distance(pixel, seed_rc)
-        max_pix_dist = torch.where(probs > 0, pix_d, 0.0).amax(dim=1)
+        r1.update(
+            probs=probs, log_w=log_w, g=g, idx1=idx1, ok1=ok1, seed_rc=seed_rc,
+            max_pix_dist=torch.where(probs > 0, pix_d, 0.0).amax(dim=1),
+            cached_id=_cached_id(seg_buffer, seed_rc))       # [1]
 
-        # segmentation mask: the cached segment if the seed pixel was
-        # claimed by an earlier base, else a flood fill
-        cached_id = seg_buffer[seed_rc[0, 0].long(), seed_rc[0, 1].long()]
+    def fresh():
+        m, conv = flood.flood_fill(
+            r1["seed_rc"], edge_free, r1["max_pix_dist"], max_iters=flood_max_iters,
+            fixed_sweeps=flood_sweeps, return_converged=True)
+        return m[0], conv
 
-        def fresh():
-            trace.count("instance.flood_fills")
-            m, conv = flood.flood_fill(
-                seed_rc, edge_free, max_pix_dist, max_iters=flood_max_iters,
-                fixed_sweeps=flood_sweeps, return_converged=True)
-            return m[0], conv[0]
+    def fill():                                 # "read", the seed unclaimed
+        m, conv = fresh()
+        seg.copy_(m)
+        fill_ok.copy_(conv)
+        seg_buffer.copy_(torch.where(m, (row + 1).to(torch.int32), seg_buffer))
 
-        if cache_branch == "read":
-            trace.count("host_reads")
-            hit = int(cached_id)                             # host read
-            if hit:
-                seg_mask, fill_ok = masks[hit], true
-            else:
-                seg_mask, fill_ok = fresh()
-                seg_buffer = torch.where(seg_mask, base_num, seg_buffer)
-        else:
-            m, conv = fresh()
-            hit = cached_id != 0
-            seg_mask = torch.where(
-                hit, masks.index_select(0, cached_id.long().reshape(1))[0], m)
-            seg_buffer = torch.where(m & ~hit, base_num, seg_buffer)
-            fill_ok = hit | conv
-        masks[base_num] = seg_mask
+    def fill_select():
+        m, conv = fresh()
+        cached_id = r1["cached_id"]
+        hit = cached_id != 0
+        seg.copy_(torch.where(hit, masks.index_select(0, cached_id.long())[0], m))
+        seg_buffer.copy_(torch.where(m & ~hit, (row + 1).to(torch.int32), seg_buffer))
+        fill_ok.copy_(hit | conv)
 
-        prev_in = seg_mask[prow, pcol]
-        probs = torch.where(prev_in[None, :], probs, 0.0)
+    def post():
+        masks.index_copy_(0, row + 1, seg[None])
+        prev_in.copy_(seg[prow, pcol])
+        g, log_w, idx1 = r1["g"], r1["log_w"], r1["idx1"]
+        probs = torch.where(prev_in[None, :], r1["probs"], 0.0)
 
         idx2, ok2 = _draw_rows(g[1], probs, log_w)
         keep2 = sampling.round2_keep_mask(
@@ -185,11 +254,50 @@ def sample_instance_bases_stepwise(
 
         idx4, ok4 = _draw_rows(g[3], probs, log_w)
 
-        raws.append(torch.cat([idx1, idx2, idx3, idx4]))
-        oks.append((ok1 & ok2 & ok3 & ok4)[0])
-        fills.append(fill_ok)
-    return _finish(pos, torch.stack(raws), torch.stack(oks), class_prob,
-                   masks, torch.stack(fills))
+        raws.index_copy_(0, row, torch.cat([idx1, idx2, idx3, idx4])[None])
+        oks.index_copy_(0, row, r1["ok1"] & ok2 & ok3 & ok4)
+        fills.index_copy_(0, row, fill_ok)
+        row.add_(1)
+
+    def base():                                 # "select": no host read
+        pre()
+        fill_select()
+        post()
+
+    read = cache_branch == "read"
+    parts = dict(pre=pre, fill=fill, post=post) if read else dict(base=base)
+    capture = dev.type == "cuda" and flood_sweeps is not None and num_bases > 1
+
+    def run(name):                              # eagerly, until captured
+        parts[name]()
+
+    keys = _base_keys(key, num_bases)
+    graphs = None
+    for b in range(num_bases):
+        if b % block == 0:
+            block_noise = rng.gumbel_rows(keys[b:b + block].reshape(-1, 2), n, dev)
+            noise[:block_noise.shape[0] // 4].copy_(block_noise.reshape(-1, 4, 1, n))
+        if b == 1 and capture:
+            run = graphs = _Graphs(dev, parts)
+        if graphs is not None:
+            trace.count("instance.graph_replays")
+        if not read:
+            trace.count("instance.flood_fills")
+            run("base")
+            continue
+        run("pre")
+        # segmentation mask: the cached segment if the seed pixel was
+        # claimed by an earlier base, else a flood fill
+        trace.count("host_reads")
+        hit = int(r1["cached_id"])                           # host read
+        if hit:
+            seg.copy_(masks[hit])
+            fill_ok.fill_(True)
+        else:
+            trace.count("instance.flood_fills")
+            run("fill")
+        run("post")
+    return _finish(pos, raws, oks, class_prob, masks, fills)
 
 
 def sample_instance_bases(

@@ -14,6 +14,7 @@ broadcasts over leading dims and keeps the device of its inputs.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -107,13 +108,19 @@ def _angle_bin_cos_thresholds(rot_disc: int) -> np.ndarray:
     return np.cos(np.radians(bounds.astype(np.float64))).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _angle_bin_thresholds(rot_disc: int, device: str) -> torch.Tensor:
+    """The thresholds as a tensor, made once per device: an upload on
+    every call would stall the launch queue, and cannot be captured in a
+    CUDA graph."""
+    return torch.from_numpy(_angle_bin_cos_thresholds(rot_disc)).to(device)
+
+
 def angle_bin_index(cos_angle, rot_disc: int):
     """Bin index m (bin value = m * rot_disc) of an atan2-style angle in
     [0, 180] from its cosine: the count of boundary cosines it lies at or
     below (the angle decreases monotonically in its cosine)."""
-    th = torch.from_numpy(_angle_bin_cos_thresholds(rot_disc)).to(
-        cos_angle.device
-    )
+    th = _angle_bin_thresholds(rot_disc, str(cos_angle.device))
     return (cos_angle[..., None] <= th).sum(dim=-1, dtype=torch.int32)
 
 

@@ -251,7 +251,10 @@ def test_scene_build_card_equal_cpu(tmp_path, monkeypatch, config):
 def test_flood_and_instance_sampler_card_equal_cpu():
     """Flood fills (both modes, a batch of seeds) and the sequential
     instance sampler (both ways of taking the cached-mask branch) give the
-    same masks, bases and decayed prior on the card as on the CPU."""
+    same masks, bases and decayed prior on the card as on the CPU: every
+    field bit for bit, over bases that cross a noise block, with every base
+    after the first replayed from CUDA graphs (three for "read", one for
+    "select") and as many flood fills as the CPU's eager loop."""
     from model_matching_tpu_torch import flood, instance, rng
 
     dev = _card()
@@ -281,11 +284,20 @@ def test_flood_and_instance_sampler_card_equal_cpu():
             internal_angle_threshold=cfg.internal_angle_threshold,
             flood_sweeps=8, block=5, cache_branch=branch)
 
-    cpu = sample(model, scene, "read")
-    assert bool(cpu.valid.any())
-    for branch in ("read", "select"):
-        for a, b in zip(cpu, sample(m_g, s_g, branch)):
-            assert torch.equal(a, b.cpu()), branch
+    names = ("instance.graph_captures", "instance.graph_replays", "instance.flood_fills")
+
+    def counted(m, s, branch):
+        before = [trace.total(k) for k in names]
+        out = sample(m, s, branch)
+        return out, [trace.total(k) - b for k, b in zip(names, before)]
+
+    for branch, graphs in (("read", 3), ("select", 1)):
+        cpu, (c_captures, c_replays, c_fills) = counted(model, scene, branch)
+        assert bool(cpu.valid.any()) and c_captures == c_replays == 0
+        card, (captures, replays, fills) = counted(m_g, s_g, branch)
+        assert (captures, replays, fills) == (graphs, 11, c_fills), branch
+        for f in instance.InstanceSamples._fields:
+            assert torch.equal(getattr(cpu, f), getattr(card, f).cpu()), (branch, f)
 
 
 @pytest.mark.cuda

@@ -19,6 +19,7 @@ from model_matching_tpu import sampling as jsamp
 from model_matching_tpu_torch import convert, rng
 from model_matching_tpu_torch import instance as tinst
 from model_matching_tpu_torch import sampling as tsamp
+from model_matching_tpu_torch.utils import trace
 from tests.test_instance import build_easy_scene, build_scene
 
 KW = dict(tr_disc=5, rot_disc=5, plane_threshold=0.15, min_distance_base=0.01,
@@ -117,6 +118,41 @@ def test_one_loop_under_three_names(easy):
                for i in range(1, 11) for j in range(1, i))
     with pytest.raises(ValueError, match="cache_branch"):
         _torch_seq(tenv, key, 2, cache_branch="maybe")
+
+
+def test_cached_id_flat_read_equals_indexing():
+    """The claim read as a gather at row * W + col equals indexing the
+    buffer by the seed's row and column, on random buffers and seeds,
+    corners included."""
+    g = np.random.default_rng(21)
+    for h, w in ((24, 32), (7, 5), (120, 160)):
+        buf = torch.from_numpy(g.integers(0, 100, (h, w)).astype(np.int32))
+        rc = np.stack([g.integers(0, h, 40), g.integers(0, w, 40)], axis=1)
+        rc = np.concatenate([rc, [[0, 0], [h - 1, w - 1], [0, w - 1], [h - 1, 0]]])
+        seeds = torch.from_numpy(rc.astype(np.int32))
+        got = tinst._cached_id(buf, seeds)
+        assert got.dtype == torch.int32 and got.shape == (seeds.shape[0],)
+        want = torch.stack([buf[r, c] for r, c in seeds.long()])
+        assert torch.equal(got, want)
+        assert torch.equal(tinst._cached_id(buf, seeds[:1]), buf[seeds[0, 0], seeds[0, 1]][None])
+
+
+@pytest.mark.parametrize("branch", ["read", "select"])
+def test_cpu_sampler_captures_no_graph(easy, branch):
+    """On the CPU the sequential sampler runs every base eagerly: it
+    captures and replays no CUDA graph, and counts one flood fill for each
+    base whose seed was unclaimed ("read") or for every base ("select")."""
+    _env, tenv = easy
+    names = ("instance.graph_captures", "instance.graph_replays", "instance.flood_fills")
+    before = [trace.total(k) for k in names]
+    out = _torch_seq(tenv, rng.PRNGKey(9), 10, sweeps=8, block=3, cache_branch=branch)
+    captures, replays, fills = (trace.total(k) - b for k, b in zip(names, before))
+    assert captures == 0 and replays == 0
+    m = out.seg_masks
+    fresh = sum(not any(torch.equal(m[i], m[j]) for j in range(1, i))
+                for i in range(1, 11))
+    assert fills == (10 if branch == "select" else fresh)
+    assert fresh < 10          # the cache was hit, so the branches count apart
 
 
 def test_exists_bits_words_and_draws(wall):

@@ -72,6 +72,27 @@ def test_keys_equal(tables):
     np.testing.assert_array_equal(jops.fanout_deltas(5, 5), tops.fanout_deltas(5, 5))
 
 
+def test_angle_bin_thresholds_made_once_per_device(monkeypatch):
+    """angle_bin_index makes its threshold tensor on a device once: later
+    calls read the same tensor and make no host array to copy (a copy a
+    call would stall the card's launch queue and break a graph capture)."""
+    made = []
+    real = tops._angle_bin_cos_thresholds
+    monkeypatch.setattr(tops, "_angle_bin_cos_thresholds",
+                        lambda rot: made.append(rot) or real(rot))
+    tops._angle_bin_thresholds.cache_clear()
+    c = torch.from_numpy(np.random.default_rng(4).uniform(-1, 1, 999).astype(np.float32))
+    first = tops.angle_bin_index(c, 5)
+    th = tops._angle_bin_thresholds(5, "cpu")
+    for _ in range(3):
+        assert torch.equal(tops.angle_bin_index(c, 5), first)
+    assert made == [5]
+    assert tops._angle_bin_thresholds(5, "cpu") is th
+    np.testing.assert_array_equal(th.numpy(), real(5))
+    np.testing.assert_array_equal(
+        first.numpy(), np.asarray(jops.angle_bin_index(jnp.asarray(c.numpy()), 5)))
+
+
 @pytest.mark.parametrize("direct", [True, False])
 def test_lookups_equal(tables, direct):
     """Existence, pair ranges and the per-pair / per-block gathers, on the
