@@ -70,11 +70,10 @@ Phases, in order; any failure exits nonzero and prints no result:
              (some valid point below its ingested value, none above), every
              valid base's four points inside its own segment mask and none
              on an edge pixel, the count of unconverged fills printed, and
-             both ways of taking the cached-mask branch timed (equal
-             outputs). Every sampler call, the command's included, must
-             replay 99 of its 100 bases from CUDA graphs (3 captured for
-             the host-read branch, 1 for the select branch); sample_bases
-             seconds and the counters are printed. The recorded launches
+             the sampler timed warm. Every sampler call, the command's
+             included, must replay 99 of its 100 bases from the 3 CUDA
+             graphs it captures; sample_bases seconds and the counters are
+             printed. The recorded launches
              are held against the plain versions bit for bit (the dense
              gate on the first two and the last base of a launch). Then at 160x120, 16 bases, a 1 cm
              voxel, 4,096 points, 2,048 pairs per bin and 64 sets per base
@@ -1342,12 +1341,11 @@ def _instance_phase(torch, dev, dense_gate, dense_gate_reference, row_gather):
     _pose_file_on_scene(torch, dev, np, os.path.join(
         scene_dir, f"best_pose_candidate_{obj}.txt"), model_ply, scene, cfg)
 
-    # the sampler on the ingested scene: its outputs, and the two ways of
-    # taking the cached-mask branch timed warm
+    # the sampler on the ingested scene: its outputs, timed warm
     k_sample = rng.split(rng.PRNGKey(cfg.seed))[0]
     from model_matching_tpu_torch import instance
 
-    def sample(branch):
+    def sample():
         return instance.sample_instance_bases_stepwise(
             k_sample, model.table, scene.pos, scene.normal, scene.class_prob,
             scene.edge_prob, scene.pixel, scene.valid, scene.edge_free,
@@ -1357,37 +1355,29 @@ def _instance_phase(torch, dev, dense_gate, dense_gate_reference, row_gather):
             min_distance_base=cfg.min_distance_base,
             internal_angle_threshold=cfg.internal_angle_threshold,
             flood_max_iters=cfg.flood_fill_max_iters, block=cfg.instance_scan_block,
-            flood_sweeps=cfg.flood_fill_sweeps or None, cache_branch=branch)
+            flood_sweeps=cfg.flood_fill_sweeps or None)
 
-    # alternately, four runs each; the first of each warms up, the median
-    # of the other three stays (single runs differ by the host's noise)
-    walls, outs = {"read": [], "select": []}, {}
+    # four runs; the first warms up, the median of the other three stays
+    # (single runs differ by the host's noise)
+    walls = []
     for _ in range(4):
-        for branch in walls:
-            g_before = _graph_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            outs[branch] = sample(branch)
-            torch.cuda.synchronize()
-            walls[branch].append(time.perf_counter() - t0)
-            _check_graph_counts(_graph_counts(g_before), cfg.number_of_bases,
-                                3 if branch == "read" else 1, f"instance {branch}")
-    timed = {k: sorted(v[1:])[1] for k, v in walls.items()}
-    for a, b in zip(outs["read"], outs["select"]):
-        if not torch.equal(a, b):
-            raise AssertionError("the two cached-mask branches give different outputs")
-    s = outs["read"]
+        g_before = _graph_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = sample()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        _check_graph_counts(_graph_counts(g_before), cfg.number_of_bases, 3, "instance")
     n_b = cfg.number_of_bases
+    ms_per_base = sorted(walls[1:])[1] / n_b * 1e3
     masks = s.seg_masks
     distinct = int(torch.unique(masks[1:].flatten(1).to(torch.uint8), dim=0).shape[0])
-    spread = {k: [round(t / n_b * 1e3, 4) for t in v[1:]] for k, v in walls.items()}
     print(f"instance sampling, {n_b} bases, warm, median of 3 ({_gpu_name_and_limit()}): "
-          f"cached mask read on the host {timed['read'] / n_b * 1e3:.4f} ms a base "
-          f"{spread['read']}, fill always and select "
-          f"{timed['select'] / n_b * 1e3:.4f} ms a base {spread['select']}; "
+          f"{ms_per_base:.4f} ms a base "
+          f"{[round(t / n_b * 1e3, 4) for t in walls[1:]]}; "
           f"{int(s.valid.sum())} valid bases, {distinct} distinct segments, "
           f"{int((~s.fill_converged).sum())} unconverged fills; each call replayed "
-          f"{n_b - 1} bases from graphs (3 captured for read, 1 for select)")
+          f"{n_b - 1} bases from the 3 graphs it captured")
     live = scene.valid
     if bool((s.class_prob[live] > scene.class_prob[live]).any()):
         raise AssertionError("the decayed prior rose somewhere")
@@ -1449,7 +1439,7 @@ def _instance_phase(torch, dev, dense_gate, dense_gate_reference, row_gather):
         raise AssertionError("the instance path on the card disagrees with the CPU")
     return dict(counts, gates=gate_rows, gate_max_abs_err=gate_rows["max_abs_err"],
                 gathers=gather_rows, gather_max_abs_err=gather_err,
-                sampling_ms_per_base={k: v / n_b * 1e3 for k, v in timed.items()},
+                sampling_ms_per_base=ms_per_base,
                 phases_ms=run["timings_ms"], graphs=graphs)
 
 

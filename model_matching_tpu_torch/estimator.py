@@ -22,6 +22,7 @@ decayed prior on the estimator, and scoring reads it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -225,6 +226,37 @@ def _phase_score(poses: PoseCandidates, model: ModelPack, scene: ScenePack,
         )
     idx, best = scoring.best_pose(scores)
     return scores, idx, best
+
+
+def _score_prob(scene: ScenePack, prior):
+    """What scoring reads for `prior`: None (the weight baked into the
+    field rows / payload) while it is the pristine vector the scene's
+    structures were built with; the vector otherwise."""
+    if (prior is scene.class_prob and scene.field.has_probs
+            and scene.grid.has_probs):
+        return None
+    return prior
+
+
+def _phases_234(k_cong, model: ModelPack, scene: ScenePack, prior, bases,
+                cfg: MatchConfig, coarse_to_fine: bool, d2_implied: bool):
+    """Congruent -> fit -> score for a set of sampled bases, with the
+    fit-time compaction, scored under `prior` (_score_prob). Returns
+    (scores [H], transforms [H, 4, 4], world_transforms [H, 4, 4], valid
+    [H], n_slot_valid, pair_max, shortfall)."""
+    sets = _run_congruent(k_cong, model, scene, bases, cfg, d2_implied)
+    cap = cfg.score_compact_cap if coarse_to_fine else 0
+    poses, n_slot_valid = _phase_fit(
+        scene.pos, _pair_ep_of(model), scene.centroid, model.centroid, bases,
+        sets, compact_cap=cap,
+    )
+    slots = bases.valid.shape[0] * cfg.maximum_congruent_sets
+    pre_n = torch.clamp(n_slot_valid, max=cap) if (cap and slots > cap) else None
+    scores, _i, _b = _phase_score(poses, model, scene, _score_prob(scene, prior),
+                                  cfg, coarse_to_fine, precompacted_count=pre_n)
+    return (scores, poses.transform, poses.world_transform, poses.valid,
+            n_slot_valid, sets.pair_counts.max(),
+            congruent.selection_shortfall(sets, cfg))
 
 
 def _phase_refine(best_t, model: ModelPack, scene: ScenePack, class_prob,
@@ -458,6 +490,229 @@ def finish_sweep_pool(pool_s, pool_t, pool_w, model: ModelPack,
         return best_lcp, best_w, cl_w, cl_s, stats
 
 
+@dataclasses.dataclass
+class _SweepChunk:
+    """One chunk of a sweep as its step hands it to _sweep_chunks: the
+    pooled winners, the device counters (0-dim int32) and the prior the
+    next chunk samples under."""
+    pool_s: torch.Tensor        # [k] scores
+    pool_t: torch.Tensor        # [k, 4, 4] transforms
+    pool_w: torch.Tensor        # [k, 4, 4] world transforms
+    n_valid: torch.Tensor       # fit-valid hypotheses (the hypotheses stat)
+    n_slot_valid: torch.Tensor  # congruent-valid slots before the fit-time
+    #                             compaction (the overflow warning)
+    pair_max: torch.Tensor
+    shortfall: torch.Tensor
+    prior: torch.Tensor
+    unconverged: Optional[torch.Tensor] = None   # instance path
+    counts: dict = dataclasses.field(default_factory=dict)  # the caller's own
+
+
+def _sweep_chunks(step, model: ModelPack, scene: ScenePack, cfg: MatchConfig,
+                  prior, *, total_bases: int, chunk: int, seed: int, kp: int,
+                  t_start: float, verbose: bool, checkpoint_path,
+                  checkpoint_every: int, stop_after_chunks,
+                  coarse_to_fine: bool = True, devices: int = 0,
+                  counts: Optional[dict] = None, baked_finish: bool = True):
+    """The chunk loop of a sweep, one-device (`devices` 0) or over a mesh
+    of `devices` ranks, around the caller's per-chunk work:
+    `step(key, prior)` runs chunk ci under key fold_in(PRNGKey(seed), ci)
+    and the prior the chunks before it left, and returns a _SweepChunk.
+
+    The loop resumes from `checkpoint_path` (`kp` and `devices` are
+    recorded there) and checkpoints on its cadence, keeps the pools and
+    the counters on the device and reads them once after the loop (and
+    once per checkpoint), warns of what cost recall, removes a finished
+    sweep's checkpoint and hands the pool to finish_sweep_pool, scored
+    under `prior` (through _score_prob when `baked_finish`). `counts` maps
+    each name of a _SweepChunk's own counters to its value over no chunk;
+    their sums over the chunks of this call go into the stats. `cfg` is
+    the chunk's config (number_of_bases = chunk). Spans: `sweep.chunk`
+    around each chunk; the caller's `sweep.run` around the call.
+
+    Returns (finish_sweep_pool's tuple, the prior the last chunk left)."""
+    dev = scene.pos.device
+    use_instance = scene.has_edge
+    name = "sharded sweep" if devices else "sweep"
+    event = "stocs_sweep_sharded" if devices else "stocs_sweep"
+    n_chunks = -(-total_bases // chunk)
+    key0 = rng.PRNGKey(seed)
+    counts = counts or {}
+
+    def i32(v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    pool_s, pool_t, pool_w = [], [], []
+    chunk_valid, chunk_slot_valid = [], []
+    pair_maxes, shortfalls, unconverged = [], [], []
+    chunk_counts = {k: [] for k in counts}
+    start_chunk = 0
+    resumed_unconverged = 0
+    resumed_pair_max = 0
+    t_prev = 0.0
+    cfg_fp = _sweep_cfg_fingerprint(cfg) if checkpoint_path else ""
+    if checkpoint_path and os.path.exists(checkpoint_path):
+        state = _load_sweep_checkpoint(
+            checkpoint_path, chunk=chunk, seed=seed, kp=kp, cfg_fp=cfg_fp,
+            use_instance=use_instance, device=dev, devices=devices,
+        )
+        start_chunk = state["next_chunk"]
+        if start_chunk > n_chunks:
+            raise ValueError(
+                f"sweep checkpoint {checkpoint_path} has already "
+                f"processed {start_chunk} chunks; this call asks for "
+                f"only {n_chunks} — raise total_bases (resuming with a "
+                f"larger budget extends the sweep)"
+            )
+        if start_chunk:
+            pool_s.append(state["pool_s"].reshape(-1))
+            pool_t.append(state["pool_t"].reshape(-1, 4, 4))
+            pool_w.append(state["pool_w"].reshape(-1, 4, 4))
+            # the per-chunk counts survive the round trip so that the
+            # overflow warning keeps its per-chunk maximum
+            chunk_valid.extend(state["chunk_valid"].reshape(-1))
+            chunk_slot_valid.extend(state["chunk_slot_valid"].reshape(-1))
+        resumed_unconverged = state["unconverged"]
+        resumed_pair_max = state["pair_max"]
+        t_prev = state["elapsed"]
+        if state["prob_decayed"]:
+            prior = state["class_prob"]
+        log_event(f"{event}_resume", path=checkpoint_path,
+                  next_chunk=start_chunk, n_chunks=n_chunks,
+                  **({"devices": devices} if devices else {}))
+        if verbose:
+            print(f"{name}: resumed from {checkpoint_path} at chunk "
+                  f"{start_chunk}/{n_chunks}")
+
+    def total(parts, base=0):
+        """0-dim int32: `base` plus the sum of the device counters."""
+        return torch.stack(parts).sum(dtype=torch.int32) + base if parts else i32(base)
+
+    def running_pair_max():
+        if not pair_maxes:
+            return i32(resumed_pair_max)
+        return torch.clamp(torch.stack(pair_maxes).max(), min=resumed_pair_max)
+
+    def save_ckpt(next_chunk):
+        _save_sweep_checkpoint(
+            checkpoint_path, next_chunk=next_chunk, chunk=chunk, seed=seed,
+            kp=kp, cfg_fp=cfg_fp, use_instance=use_instance, devices=devices,
+            # a resumed pool's first entry is flat [start * kp]; one
+            # concatenation and reshape restore the per-chunk layout
+            pool_s=torch.cat(pool_s).reshape(next_chunk, -1),
+            pool_t=torch.cat(pool_t).reshape(next_chunk, -1, 4, 4),
+            pool_w=torch.cat(pool_w).reshape(next_chunk, -1, 4, 4),
+            chunk_valid=torch.stack(chunk_valid),
+            chunk_slot_valid=torch.stack(chunk_slot_valid),
+            unconverged=total(unconverged, resumed_unconverged),
+            elapsed=t_prev + (time.perf_counter() - t_start),
+            prob_decayed=prior is not scene.class_prob,
+            class_prob=prior,
+            pair_max=running_pair_max(),
+        )
+
+    stopped_at = None
+    for ci in range(start_chunk, n_chunks):
+        with trace.span("sweep.chunk"):
+            c = step(rng.fold_in(key0, ci), prior)
+            prior = c.prior
+            pool_s.append(c.pool_s)
+            pool_t.append(c.pool_t)
+            pool_w.append(c.pool_w)
+            chunk_valid.append(c.n_valid)
+            chunk_slot_valid.append(c.n_slot_valid)
+            pair_maxes.append(c.pair_max)
+            shortfalls.append(c.shortfall)
+            if c.unconverged is not None:
+                unconverged.append(c.unconverged)
+            for k, v in c.counts.items():
+                chunk_counts[k].append(v)
+            done_this_call = ci + 1 - start_chunk
+            if (stop_after_chunks is not None
+                    and done_this_call >= stop_after_chunks
+                    and ci + 1 < n_chunks):
+                stopped_at = ci + 1
+                if checkpoint_path:
+                    save_ckpt(ci + 1)
+                break
+            if (checkpoint_path and ci + 1 < n_chunks
+                    and done_this_call % max(1, checkpoint_every) == 0):
+                save_ckpt(ci + 1)
+    completed = stopped_at is None
+    # one transfer for the loop's deferred device-side counters
+    h_unconv, h_nvs, h_slvs, h_pmx, h_short, *h_counts = _to_host(
+        total(unconverged, resumed_unconverged),
+        torch.stack(chunk_valid) if chunk_valid else i32([0]),
+        torch.stack(chunk_slot_valid) if chunk_slot_valid else i32([0]),
+        running_pair_max(), total(shortfalls),
+        *(torch.stack(v).sum(0) if v else counts[k]
+          for k, v in chunk_counts.items()),
+    )
+    n_unconverged = int(h_unconv)
+    if n_unconverged:
+        warn(
+            f"{n_unconverged} flood fills across the {name} did not "
+            f"reach their BFS fixpoint in flood_fill_sweeps="
+            f"{cfg.flood_fill_sweeps} sweeps — segments under-fill",
+            n_unconverged=n_unconverged, sweeps=cfg.flood_fill_sweeps,
+        )
+    n_hyp_total = int(h_nvs.sum())
+    # the overflow check uses the congruent-valid counts from before the
+    # compaction (fit compacts to the cap, so fit-valid counts never
+    # exceed it); a rank fits its share of the chunk
+    cap = cfg.score_compact_cap
+    slots = chunk // max(1, devices) * cfg.maximum_congruent_sets
+    slot_max = int(h_slvs.max())
+    if coarse_to_fine and cap and slots > cap and slot_max > cap:
+        fitted = "a device's chunk shard" if devices else "a chunk"
+        warn(
+            f"{fitted} produced {slot_max} congruent-valid hypothesis slots, over "
+            f"score_compact_cap={cap}; overflow was not fitted or scored "
+            f"— raise the cap for full recall",
+            n_valid=slot_max, cap=cap,
+        )
+    has_pair_max = bool(pair_maxes) or bool(resumed_pair_max)
+    pair_max = int(h_pmx)
+    if has_pair_max and pair_max > cfg.max_pairs_per_bin:
+        warn(
+            f"a PPF bin held {pair_max} pairs; only "
+            f"max_pairs_per_bin={cfg.max_pairs_per_bin} were matched — "
+            f"raise the cap for full recall",
+            pair_max=pair_max, cap=cfg.max_pairs_per_bin,
+        )
+    if int(h_short):
+        warn(
+            f"{int(h_short)} saturated bases kept fewer than "
+            f"maximum_congruent_sets={cfg.maximum_congruent_sets} sets "
+            f"after the exact-cone re-check — raise "
+            f"congruent_cone_oversample for full selection",
+            n_short=int(h_short),
+            oversample=cfg.congruent_cone_oversample,
+        )
+    if completed and checkpoint_path:
+        # the processes of a group may share the file
+        with contextlib.suppress(FileNotFoundError):
+            os.remove(checkpoint_path)
+    processed = (stopped_at if stopped_at is not None else n_chunks) * chunk
+    extra = {"devices": devices} if devices else {}
+    extra["completed"] = completed
+    extra.update((k, [int(v) for v in h]) for k, h in zip(chunk_counts, h_counts))
+    if has_pair_max:
+        # exposed so that callers can fail on a truncation that costs
+        # recall instead of relying on the warning text
+        extra["pair_count_max"] = pair_max
+    if not completed:
+        extra["next_chunk"] = stopped_at
+    return finish_sweep_pool(
+        torch.cat(pool_s), torch.cat(pool_t), torch.cat(pool_w), model, scene,
+        _score_prob(scene, prior) if baked_finish else prior, cfg,
+        total_bases=processed, n_hyp_total=n_hyp_total,
+        # resumed time counts: finish measures now - t_start
+        t_start=t_start - t_prev, verbose=verbose, event=event,
+        extra_stats=extra,
+    ), prior
+
+
 class StocsEstimator:
     """Matches one model against one scene, on the device of the packs. The
     class path (no edge map) is fully batched; the instance path threads
@@ -484,14 +739,8 @@ class StocsEstimator:
             self._d2_implied = congruent.d2_test_implied(model.pos, cfg)
 
     def _score_prob(self):
-        """None (read the weight baked into the field rows / payload) while
-        the probability vector is the pristine one the structures were
-        built with; the vector otherwise."""
-        s = self.scene
-        if (self.class_prob is s.class_prob and s.field.has_probs
-                and s.grid.has_probs):
-            return None
-        return self.class_prob
+        """What scoring reads for the estimator's prior (_score_prob)."""
+        return _score_prob(self.scene, self.class_prob)
 
     def exists_bits(self):
         """The bit-packed pair-existence matrix, built at first use: one
@@ -721,222 +970,54 @@ class StocsEstimator:
 
         Spans: `sweep.run` around the call, `sweep.chunk` around each
         chunk, `sweep.finish` around the tail (finish_sweep_pool)."""
-        with trace.span("sweep.run"):
-            return self._run_sweep(total_bases, chunk, keep_per_chunk, seed, verbose,
-                                   checkpoint_path, checkpoint_every,
-                                   stop_after_chunks)
-
-    def _run_sweep(self, total_bases, chunk, keep_per_chunk, seed, verbose,
-                   checkpoint_path, checkpoint_every, stop_after_chunks):
         cfg = dataclasses.replace(self.cfg, number_of_bases=chunk)
-        dev = self.scene.pos.device
         if keep_per_chunk is None:
             keep_per_chunk = cfg.sweep_keep_per_chunk
-        seed_used = cfg.seed if seed is None else seed
-        key0 = rng.PRNGKey(seed_used)
-        n_chunks = -(-total_bases // chunk)
-        total_bases = n_chunks * chunk
         use_instance = self.scene.has_edge
 
-        def i32(v):
-            return torch.tensor(v, dtype=torch.int32, device=dev)
-
-        pool_t, pool_w, pool_s = [], [], []
-        chunk_valid, chunk_slot_valid = [], []
-        pair_maxes, shortfalls, unconverged = [], [], []
-        start_chunk = 0
-        resumed_unconverged = 0
-        resumed_pair_max = 0
-        t_prev = 0.0
-        cfg_fp = _sweep_cfg_fingerprint(cfg) if checkpoint_path else ""
-        if checkpoint_path and os.path.exists(checkpoint_path):
-            state = _load_sweep_checkpoint(
-                checkpoint_path, chunk=chunk, seed=seed_used,
-                kp=keep_per_chunk, cfg_fp=cfg_fp, use_instance=use_instance,
-                device=dev,
-            )
-            start_chunk = state["next_chunk"]
-            if start_chunk > n_chunks:
-                raise ValueError(
-                    f"sweep checkpoint {checkpoint_path} has already "
-                    f"processed {start_chunk} chunks; this call asks for "
-                    f"only {n_chunks} — raise total_bases (resuming with a "
-                    f"larger budget extends the sweep)"
+        def step(key, prior):
+            k_sample, k_cong = rng.split(key)
+            unconverged = None
+            if use_instance:
+                inst = _phase_sample_instance(
+                    k_sample, self.model.table, self.scene, prior, cfg, chunk,
                 )
-            if start_chunk:
-                pool_s.append(state["pool_s"].reshape(-1))
-                pool_t.append(state["pool_t"].reshape(-1, 4, 4))
-                pool_w.append(state["pool_w"].reshape(-1, 4, 4))
-                # the per-chunk counts survive the round trip so that the
-                # overflow warning keeps its per-chunk maximum
-                chunk_valid.extend(state["chunk_valid"].reshape(-1))
-                chunk_slot_valid.extend(state["chunk_slot_valid"].reshape(-1))
-            resumed_unconverged = state["unconverged"]
-            resumed_pair_max = state["pair_max"]
-            t_prev = state["elapsed"]
-            if state["prob_decayed"]:
-                self.class_prob = state["class_prob"]
-            log_event("stocs_sweep_resume", path=checkpoint_path,
-                      next_chunk=start_chunk, n_chunks=n_chunks)
-            if verbose:
-                print(f"sweep: resumed from {checkpoint_path} at chunk "
-                      f"{start_chunk}/{n_chunks}")
-
-        def total(parts, base=0):
-            """0-dim int32: `base` plus the sum of the device counters."""
-            return torch.stack(parts).sum(dtype=torch.int32) + base if parts else i32(base)
-
-        def running_pair_max():
-            if not pair_maxes:
-                return i32(resumed_pair_max)
-            return torch.clamp(torch.stack(pair_maxes).max(), min=resumed_pair_max)
-
-        def save_ckpt(next_chunk):
-            _save_sweep_checkpoint(
-                checkpoint_path, next_chunk=next_chunk, chunk=chunk,
-                seed=seed_used, kp=keep_per_chunk, cfg_fp=cfg_fp,
-                use_instance=use_instance,
-                # a resumed pool's first entry is flat [start * kp]; one
-                # concatenation and reshape restore the per-chunk layout
-                pool_s=torch.cat(pool_s).reshape(next_chunk, -1),
-                pool_t=torch.cat(pool_t).reshape(next_chunk, -1, 4, 4),
-                pool_w=torch.cat(pool_w).reshape(next_chunk, -1, 4, 4),
-                chunk_valid=torch.stack(chunk_valid),
-                chunk_slot_valid=torch.stack(chunk_slot_valid),
-                unconverged=total(unconverged, resumed_unconverged),
-                elapsed=t_prev + (time.perf_counter() - t_start),
-                prob_decayed=self.class_prob is not self.scene.class_prob,
-                class_prob=self.class_prob,
-                pair_max=running_pair_max(),
-            )
-
-        t_start = time.perf_counter()
-        bits = None if use_instance else self.exists_bits()
-        cap = cfg.score_compact_cap
-        slots = chunk * cfg.maximum_congruent_sets
-        stopped_at = None
-        for ci in range(start_chunk, n_chunks):
-            with trace.span("sweep.chunk"):
-                key = rng.fold_in(key0, ci)
-                k_sample, k_cong = rng.split(key)
-                if use_instance:
-                    inst = _phase_sample_instance(
-                        k_sample, self.model.table, self.scene, self.class_prob,
-                        cfg, chunk,
-                    )
-                    bases = sampling.SampledBases(
-                        inst.indices, inst.invariant1, inst.invariant2, inst.valid
-                    )
-                    # thread the decay: the next chunk samples (and this chunk
-                    # scores) under the prior every previous base has decayed
-                    self.class_prob = inst.class_prob
-                    unconverged.append((~inst.fill_converged).sum(dtype=torch.int32))
-                    del inst
-                else:
-                    bases = _phase_sample(
-                        k_sample, self.model.table, self.scene.pos,
-                        self.scene.normal, self.class_prob, self.scene.valid,
-                        cfg, chunk, bits,
-                    )
-                sets = _run_congruent(k_cong, self.model, self.scene, bases, cfg,
-                                      self._d2_implied)
-                poses, n_slot_valid = _phase_fit(
-                    self.scene.pos, _pair_ep_of(self.model),
-                    self.scene.centroid, self.model.centroid, bases, sets,
-                    compact_cap=cap,
+                bases = sampling.SampledBases(
+                    inst.indices, inst.invariant1, inst.invariant2, inst.valid
                 )
-                pre_n = (torch.clamp(n_slot_valid, max=cap)
-                         if (cap and slots > cap) else None)
-                scores, _i, _b = _phase_score(
-                    poses, self.model, self.scene, self._score_prob(), cfg, True,
-                    precompacted_count=pre_n,
+                # thread the decay: the next chunk samples (and this chunk
+                # scores) under the prior every previous base has decayed
+                prior = inst.class_prob
+                unconverged = (~inst.fill_converged).sum(dtype=torch.int32)
+                del inst
+            else:
+                bases = _phase_sample(
+                    k_sample, self.model.table, self.scene.pos,
+                    self.scene.normal, prior, self.scene.valid, cfg, chunk, bits,
                 )
-                kp = keep_per_chunk or scores.shape[0]
-                # values descending, ties by ascending index, on every device
-                top, idx = scoring._top_k(scores, min(kp, scores.shape[0]))
-                pool_s.append(top)
-                pool_t.append(poses.transform[idx])
-                pool_w.append(poses.world_transform[idx])
-                # chunk_valid = fit-valid (the hypotheses stat);
-                # chunk_slot_valid = congruent-valid before the fit-time
-                # compaction (the overflow warning)
-                chunk_valid.append(poses.valid.sum(dtype=torch.int32))
-                chunk_slot_valid.append(n_slot_valid)
-                pair_maxes.append(sets.pair_counts.max())
-                shortfalls.append(congruent.selection_shortfall(sets, cfg))
-                done_this_call = ci + 1 - start_chunk
-                if (stop_after_chunks is not None
-                        and done_this_call >= stop_after_chunks
-                        and ci + 1 < n_chunks):
-                    stopped_at = ci + 1
-                    if checkpoint_path:
-                        save_ckpt(ci + 1)
-                    break
-                if (checkpoint_path and ci + 1 < n_chunks
-                        and done_this_call % max(1, checkpoint_every) == 0):
-                    save_ckpt(ci + 1)
-        completed = stopped_at is None
-        # one transfer for the loop's deferred device-side counters
-        h_unconv, h_nvs, h_slvs, h_pmx, h_short = _to_host(
-            total(unconverged, resumed_unconverged),
-            torch.stack(chunk_valid) if chunk_valid else i32([0]),
-            torch.stack(chunk_slot_valid) if chunk_slot_valid else i32([0]),
-            running_pair_max(), total(shortfalls),
-        )
-        n_unconverged = int(h_unconv)
-        if n_unconverged:
-            warn(
-                f"{n_unconverged} flood fills across the sweep did not "
-                f"reach their BFS fixpoint in flood_fill_sweeps="
-                f"{cfg.flood_fill_sweeps} sweeps — segments under-fill",
-                n_unconverged=n_unconverged, sweeps=cfg.flood_fill_sweeps,
+            scores, trans, world, valid, n_slot_valid, pair_max, short = _phases_234(
+                k_cong, self.model, self.scene, prior, bases, cfg, True,
+                self._d2_implied,
             )
-        n_hyp_total = int(h_nvs.sum())
-        # the overflow check uses the congruent-valid counts from before
-        # the compaction (fit compacts to the cap, so fit-valid counts
-        # never exceed it)
-        slot_max = int(h_slvs.max())
-        if cap and slots > cap and slot_max > cap:
-            warn(
-                f"a chunk produced {slot_max} congruent-valid "
-                f"hypothesis slots, over score_compact_cap={cap}; overflow "
-                f"was not fitted or scored — raise the cap for full recall",
-                n_valid=slot_max, cap=cap,
+            kp = keep_per_chunk or scores.shape[0]
+            # values descending, ties by ascending index, on every device
+            top, idx = scoring._top_k(scores, min(kp, scores.shape[0]))
+            return _SweepChunk(top, trans[idx], world[idx],
+                               valid.sum(dtype=torch.int32), n_slot_valid,
+                               pair_max, short, prior, unconverged)
+
+        with trace.span("sweep.run"):
+            t_start = time.perf_counter()
+            bits = None if use_instance else self.exists_bits()
+            out, self.class_prob = _sweep_chunks(
+                step, self.model, self.scene, cfg, self.class_prob,
+                total_bases=total_bases, chunk=chunk,
+                seed=cfg.seed if seed is None else seed, kp=keep_per_chunk,
+                t_start=t_start, verbose=verbose, checkpoint_path=checkpoint_path,
+                checkpoint_every=checkpoint_every,
+                stop_after_chunks=stop_after_chunks,
             )
-        pair_max = int(h_pmx)
-        if pair_max > cfg.max_pairs_per_bin:
-            warn(
-                f"a PPF bin held {pair_max} pairs; only "
-                f"max_pairs_per_bin={cfg.max_pairs_per_bin} were matched — "
-                f"raise the cap for full recall",
-                pair_max=pair_max, cap=cfg.max_pairs_per_bin,
-            )
-        if int(h_short):
-            warn(
-                f"{int(h_short)} saturated bases kept fewer than "
-                f"maximum_congruent_sets={cfg.maximum_congruent_sets} sets "
-                f"after the exact-cone re-check — raise "
-                f"congruent_cone_oversample for full selection",
-                n_short=int(h_short),
-                oversample=cfg.congruent_cone_oversample,
-            )
-        if completed and checkpoint_path and os.path.exists(checkpoint_path):
-            os.remove(checkpoint_path)
-        processed = (stopped_at if stopped_at is not None else n_chunks) * chunk
-        extra = {"completed": completed}
-        if pair_maxes or resumed_pair_max:
-            # exposed so that callers can fail on a truncation that costs
-            # recall instead of relying on the warning text
-            extra["pair_count_max"] = pair_max
-        if not completed:
-            extra["next_chunk"] = stopped_at
-        return finish_sweep_pool(
-            torch.cat(pool_s), torch.cat(pool_t), torch.cat(pool_w),
-            self.model, self.scene, self._score_prob(), cfg,
-            total_bases=processed, n_hyp_total=n_hyp_total,
-            # resumed time counts: finish measures now - t_start
-            t_start=t_start - t_prev, verbose=verbose, extra_stats=extra,
-        )
+        return out
 
     def cluster_poses(self, result: StocsResult):
         """Symmetry-aware greedy clustering of the scored hypothesis set.

@@ -147,7 +147,6 @@ def sample_instance_bases_stepwise(
     block: int = 10,
     exists_bits=None,
     flood_sweeps=None,
-    cache_branch: str = "read",
 ) -> InstanceSamples:
     """The sequential sampler. `block` is the number of bases whose Gumbel
     noise is generated at once ([block * 4, N] floats); it changes no
@@ -155,10 +154,9 @@ def sample_instance_bases_stepwise(
     this loop runs none.
 
     A base whose seed pixel was claimed by an earlier base reuses that
-    base's cached mask; otherwise it flood-fills. `cache_branch` picks how
-    the loop takes that data-dependent branch: "read" reads the claim on
-    the host (one device sync per base, a fill only when needed), "select"
-    fills always and selects with torch.where (no sync). Same outputs.
+    base's cached mask; otherwise it flood-fills. The loop reads the claim
+    on the host to take that branch: one device sync a base, and a fill
+    only when needed.
 
     A base runs in parts (`pre`: the decay, round 1, its segment's radius
     and the claim; the fill; `post`: rounds 2-4 and the output rows) that
@@ -169,8 +167,6 @@ def sample_instance_bases_stepwise(
     constants they read: the same kernels, so the same bits, at a fraction
     of the launch cost. A fill that sweeps to its fixpoint reads the host
     every sweep, so without fixed sweeps every base runs eagerly."""
-    if cache_branch not in ("read", "select"):
-        raise ValueError(f"cache_branch must be 'read' or 'select', got {cache_branch!r}")
     dev = pos.device
     h, w = edge_free.shape
     n = pos.shape[0]
@@ -214,25 +210,14 @@ def sample_instance_bases_stepwise(
             max_pix_dist=torch.where(probs > 0, pix_d, 0.0).amax(dim=1),
             cached_id=_cached_id(seg_buffer, seed_rc))       # [1]
 
-    def fresh():
+    def fill():                                 # the seed unclaimed
         m, conv = flood.flood_fill(
             r1["seed_rc"], edge_free, r1["max_pix_dist"], max_iters=flood_max_iters,
             fixed_sweeps=flood_sweeps, return_converged=True)
-        return m[0], conv
-
-    def fill():                                 # "read", the seed unclaimed
-        m, conv = fresh()
+        m = m[0]
         seg.copy_(m)
         fill_ok.copy_(conv)
         seg_buffer.copy_(torch.where(m, (row + 1).to(torch.int32), seg_buffer))
-
-    def fill_select():
-        m, conv = fresh()
-        cached_id = r1["cached_id"]
-        hit = cached_id != 0
-        seg.copy_(torch.where(hit, masks.index_select(0, cached_id.long())[0], m))
-        seg_buffer.copy_(torch.where(m & ~hit, (row + 1).to(torch.int32), seg_buffer))
-        fill_ok.copy_(hit | conv)
 
     def post():
         masks.index_copy_(0, row + 1, seg[None])
@@ -259,13 +244,7 @@ def sample_instance_bases_stepwise(
         fills.index_copy_(0, row, fill_ok)
         row.add_(1)
 
-    def base():                                 # "select": no host read
-        pre()
-        fill_select()
-        post()
-
-    read = cache_branch == "read"
-    parts = dict(pre=pre, fill=fill, post=post) if read else dict(base=base)
+    parts = dict(pre=pre, fill=fill, post=post)
     capture = dev.type == "cuda" and flood_sweeps is not None and num_bases > 1
 
     def run(name):                              # eagerly, until captured
@@ -281,10 +260,6 @@ def sample_instance_bases_stepwise(
             run = graphs = _Graphs(dev, parts)
         if graphs is not None:
             trace.count("instance.graph_replays")
-        if not read:
-            trace.count("instance.flood_fills")
-            run("base")
-            continue
         run("pre")
         # segmentation mask: the cached segment if the seed pixel was
         # claimed by an earlier base, else a flood fill
@@ -320,7 +295,6 @@ def sample_instance_bases(
     flood_max_iters: int = 512,
     exists_bits=None,
     flood_sweeps=None,
-    cache_branch: str = "read",
 ) -> InstanceSamples:
     """The JAX package's whole-scan sampler: the same loop as
     sample_instance_bases_stepwise."""
@@ -329,7 +303,7 @@ def sample_instance_bases(
         edge_free, num_bases, dispersion, tr_disc, rot_disc, plane_threshold,
         min_distance_base, internal_angle_threshold,
         flood_max_iters=flood_max_iters, block=64, exists_bits=exists_bits,
-        flood_sweeps=flood_sweeps, cache_branch=cache_branch,
+        flood_sweeps=flood_sweeps,
     )
 
 

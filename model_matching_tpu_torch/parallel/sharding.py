@@ -46,7 +46,6 @@ them on its own device, so neither has a counterpart here.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import datetime
 import os
@@ -59,24 +58,18 @@ import torch.distributed as dist
 from .. import congruent, rng, sampling
 from ..config import MatchConfig
 from ..estimator import (
-    _load_sweep_checkpoint,
-    _pair_ep_of,
-    _phase_fit,
     _phase_sample,
     _phase_sample_instance,
-    _phase_score,
-    _run_congruent,
-    _save_sweep_checkpoint,
-    _sweep_cfg_fingerprint,
-    _to_host,
-    finish_sweep_pool,
+    _phases_234,
+    _sweep_chunks,
+    _SweepChunk,
 )
 from ..model import ModelPack
 from ..scene import ScenePack
 from ..scoring import _top_k
 from ..utils import trace
 from ..utils.device import require
-from ..utils.log import log_event, warn
+from ..utils.log import warn
 
 HYP_AXIS = "hyp"
 
@@ -283,33 +276,6 @@ def _on_ranks(mesh: Mesh, *values):
 # one rank's share
 # ---------------------------------------------------------------------------
 
-def _phases_234(k_cong, model: ModelPack, scene: ScenePack, class_prob, bases,
-                cfg: MatchConfig, coarse_to_fine: bool, d2_implied: bool,
-                use_baked: bool):
-    """Congruent -> fit -> score for one rank's (sampled) bases, with the
-    fit-time compaction and the counters of the one-device phases.
-    Returns (scores [H], transforms [H, 4, 4], world_transforms [H, 4, 4],
-    valid [H], n_slot_valid, pair_max, shortfall)."""
-    sets = _run_congruent(k_cong, model, scene, bases, cfg, d2_implied)
-    cap = cfg.score_compact_cap if coarse_to_fine else 0
-    poses, n_slot_valid = _phase_fit(
-        scene.pos, _pair_ep_of(model), scene.centroid, model.centroid, bases,
-        sets, compact_cap=cap,
-    )
-    slots = bases.valid.shape[0] * cfg.maximum_congruent_sets
-    pre_n = torch.clamp(n_slot_valid, max=cap) if (cap and slots > cap) else None
-    # the weights baked into the scene structures only under the pristine
-    # prior they were built with (class path); the instance path scores
-    # with the decayed prior, read explicitly
-    sp = (None if use_baked and scene.field.has_probs and scene.grid.has_probs
-          else class_prob)
-    scores, _i, _b = _phase_score(poses, model, scene, sp, cfg, coarse_to_fine,
-                                  precompacted_count=pre_n)
-    return (scores, poses.transform, poses.world_transform, poses.valid,
-            n_slot_valid, sets.pair_counts.max(),
-            congruent.selection_shortfall(sets, cfg))
-
-
 def _local_hypotheses(key_local, model: ModelPack, scene: ScenePack, class_prob,
                       bits, cfg: MatchConfig, b_local: int, coarse_to_fine: bool,
                       d2_implied: bool = False):
@@ -320,7 +286,7 @@ def _local_hypotheses(key_local, model: ModelPack, scene: ScenePack, class_prob,
     bases = _phase_sample(k_sample, model.table, scene.pos, scene.normal,
                           class_prob, scene.valid, cfg, b_local, bits)
     return _phases_234(k_cong, model, scene, class_prob, bases, cfg,
-                       coarse_to_fine, d2_implied, use_baked=True)
+                       coarse_to_fine, d2_implied)
 
 
 def matching_step_sharded(mesh: Mesh, model: ModelPack, scene: ScenePack,
@@ -448,16 +414,6 @@ def run_sweep_sharded(
     a chunk `sweep.gather` (the gather through the pool's reduction: across
     processes it ends on a host copy, so it holds the wait for the slowest
     process) and, on the instance path, `sweep.broadcast`."""
-    with trace.span("sweep.run"):
-        return _run_sweep_sharded(
-            mesh, model, scene, cfg, total_bases, chunk, keep_per_chunk, seed,
-            coarse_to_fine, verbose, checkpoint_path, checkpoint_every,
-            stop_after_chunks)
-
-
-def _run_sweep_sharded(mesh, model, scene, cfg, total_bases, chunk,
-                       keep_per_chunk, seed, coarse_to_fine, verbose,
-                       checkpoint_path, checkpoint_every, stop_after_chunks):
     use_instance = scene.has_edge
     n_dev = mesh.size
     if chunk % n_dev:
@@ -469,208 +425,67 @@ def _run_sweep_sharded(mesh, model, scene, cfg, total_bases, chunk,
         # keep every local hypothesis slot
         keep_per_chunk = b_local * cfg.maximum_congruent_sets * n_dev
     keep_local = max(1, keep_per_chunk // n_dev)
-    n_chunks = -(-total_bases // chunk)
     cfg_chunk = dataclasses.replace(cfg, number_of_bases=chunk)
-    seed_used = cfg.seed if seed is None else seed
     home = scene.pos.device
 
-    key0 = rng.PRNGKey(seed_used)
-    t_start = time.perf_counter()
-    t_prev = 0.0
-    class_prob = scene.class_prob
-    bits = None if use_instance else sampling.build_exists_bits(
-        model.table, scene.pos, scene.normal,
-        cfg.ppf_tr_discretization, cfg.ppf_rot_discretization,
-    )
-    ranks = _on_ranks(mesh, model, scene, bits)
-    d2 = congruent.d2_test_implied(model.pos, cfg)
+    def step(key, prior):
+        k_sample, k_cong = rng.split(key)
+        parts, unconverged = [], None
+        if use_instance:
+            # the sequential sampler on the whole chunk, as the one-device
+            # sweep runs it: the same bases and decayed prior
+            inst = _phase_sample_instance(k_sample, model.table, scene, prior,
+                                          cfg_chunk, chunk)
+            with trace.span("sweep.broadcast"):
+                chunk_state = _broadcast0(mesh, (
+                    inst.indices, inst.invariant1, inst.invariant2, inst.valid,
+                    inst.class_prob, inst.fill_converged))
+            del inst
+            prior, fill_conv = chunk_state[4], chunk_state[5]
+            unconverged = (~fill_conv).sum(dtype=torch.int32)
+            for i, ((m, s, _b), (bi, i1, i2, bv, cp)) in enumerate(zip(
+                    ranks, _on_ranks(mesh, *chunk_state[:5]))):
+                r = mesh.rank(i)
+                blk = slice(r * b_local, (r + 1) * b_local)
+                bases = sampling.SampledBases(bi[blk], i1[blk], i2[blk], bv[blk])
+                parts.append(_pool_part(*_phases_234(
+                    rng.fold_in(k_cong, r), m, s, cp, bases, cfg_chunk,
+                    coarse_to_fine, d2), keep_local))
+        else:
+            for i, (m, s, b) in enumerate(ranks):
+                parts.append(_pool_part(*_local_hypotheses(
+                    rng.fold_in(key, mesh.rank(i)), m, s, s.class_prob, b,
+                    cfg_chunk, b_local, coarse_to_fine, d2_implied=d2),
+                    keep_local))
+        k = (parts[0].shape[0] - 4) // 33         # the pools' length
+        local_valid = torch.stack([p[33 * k].to(home) for p in parts])
+        with trace.span("sweep.gather"):
+            s_, t_, w_, nv, slot_max, pair_mx, short = _reduce_pools(
+                _all_gather(mesh, parts, home), k)
+        return _SweepChunk(s_, t_, w_, nv.sum(dtype=torch.int32), slot_max,
+                           pair_mx, short, prior, unconverged,
+                           counts={"rank_hypotheses": nv,
+                                   "local_hypotheses": local_valid})
 
-    def i32(v):
-        return torch.tensor(v, dtype=torch.int32, device=home)
+    def zeros(n):
+        return torch.zeros(n, dtype=torch.int32, device=home)
 
-    pool_s, pool_t, pool_w = [], [], []
-    chunk_valid, chunk_slot_valid, pair_maxes = [], [], []
-    shortfalls, unconverged = [], []
-    rank_valid, local_valid = [], []    # this call's chunks: [D], [local]
-    start_chunk = 0
-    resumed_unconverged = 0
-    resumed_pair_max = 0
-    cfg_fp = _sweep_cfg_fingerprint(cfg_chunk) if checkpoint_path else ""
-    if checkpoint_path and os.path.exists(checkpoint_path):
-        state = _load_sweep_checkpoint(
-            checkpoint_path, chunk=chunk, seed=seed_used, kp=keep_per_chunk,
-            cfg_fp=cfg_fp, use_instance=use_instance, device=home,
-            devices=n_dev,
+    with trace.span("sweep.run"):
+        t_start = time.perf_counter()
+        bits = None if use_instance else sampling.build_exists_bits(
+            model.table, scene.pos, scene.normal,
+            cfg.ppf_tr_discretization, cfg.ppf_rot_discretization,
         )
-        start_chunk = state["next_chunk"]
-        if start_chunk > n_chunks:
-            raise ValueError(
-                f"sweep checkpoint {checkpoint_path} has already processed "
-                f"{start_chunk} chunks; this call asks for only {n_chunks}"
-            )
-        if start_chunk:
-            pool_s.append(state["pool_s"].reshape(-1))
-            pool_t.append(state["pool_t"].reshape(-1, 4, 4))
-            pool_w.append(state["pool_w"].reshape(-1, 4, 4))
-            chunk_valid.extend(state["chunk_valid"].reshape(-1))
-            chunk_slot_valid.extend(state["chunk_slot_valid"].reshape(-1))
-        resumed_unconverged = state["unconverged"]
-        resumed_pair_max = state["pair_max"]
-        t_prev = state["elapsed"]
-        if state["prob_decayed"]:
-            class_prob = state["class_prob"]
-        log_event("stocs_sweep_sharded_resume", path=checkpoint_path,
-                  next_chunk=start_chunk, n_chunks=n_chunks, devices=n_dev)
-        if verbose:
-            print(f"sharded sweep: resumed from {checkpoint_path} at chunk "
-                  f"{start_chunk}/{n_chunks}")
-
-    def total(parts, base=0):
-        """0-dim int32: `base` plus the sum of the device counters."""
-        return torch.stack(parts).sum(dtype=torch.int32) + base if parts else i32(base)
-
-    def running_pair_max():
-        if not pair_maxes:
-            return i32(resumed_pair_max)
-        return torch.clamp(torch.stack(pair_maxes).max(), min=resumed_pair_max)
-
-    def save_ckpt(next_chunk):
-        _save_sweep_checkpoint(
-            checkpoint_path, next_chunk=next_chunk, chunk=chunk,
-            seed=seed_used, kp=keep_per_chunk, cfg_fp=cfg_fp,
-            use_instance=use_instance, devices=n_dev,
-            pool_s=torch.cat(pool_s).reshape(next_chunk, -1),
-            pool_t=torch.cat(pool_t).reshape(next_chunk, -1, 4, 4),
-            pool_w=torch.cat(pool_w).reshape(next_chunk, -1, 4, 4),
-            chunk_valid=torch.stack(chunk_valid),
-            chunk_slot_valid=torch.stack(chunk_slot_valid),
-            unconverged=total(unconverged, resumed_unconverged),
-            elapsed=t_prev + (time.perf_counter() - t_start),
-            prob_decayed=class_prob is not scene.class_prob,
-            class_prob=class_prob,
-            pair_max=running_pair_max(),
-        )
-
-    stopped_at = None
-    for ci in range(start_chunk, n_chunks):
-        with trace.span("sweep.chunk"):
-            key = rng.fold_in(key0, ci)
-            k_sample, k_cong = rng.split(key)
-            parts = []
-            if use_instance:
-                # the sequential sampler on the whole chunk, as the one-device
-                # sweep runs it: the same bases and decayed prior
-                inst = _phase_sample_instance(k_sample, model.table, scene,
-                                              class_prob, cfg_chunk, chunk)
-                with trace.span("sweep.broadcast"):
-                    chunk_state = _broadcast0(mesh, (
-                        inst.indices, inst.invariant1, inst.invariant2, inst.valid,
-                        inst.class_prob, inst.fill_converged))
-                del inst
-                class_prob, fill_conv = chunk_state[4], chunk_state[5]
-                unconverged.append((~fill_conv).sum(dtype=torch.int32))
-                for i, ((m, s, _b), (bi, i1, i2, bv, cp)) in enumerate(zip(
-                        ranks, _on_ranks(mesh, *chunk_state[:5]))):
-                    r = mesh.rank(i)
-                    blk = slice(r * b_local, (r + 1) * b_local)
-                    bases = sampling.SampledBases(bi[blk], i1[blk], i2[blk], bv[blk])
-                    parts.append(_pool_part(*_phases_234(
-                        rng.fold_in(k_cong, r), m, s, cp, bases, cfg_chunk,
-                        coarse_to_fine, d2, use_baked=False), keep_local))
-            else:
-                for i, (m, s, b) in enumerate(ranks):
-                    parts.append(_pool_part(*_local_hypotheses(
-                        rng.fold_in(key, mesh.rank(i)), m, s, s.class_prob, b,
-                        cfg_chunk, b_local, coarse_to_fine, d2_implied=d2),
-                        keep_local))
-            k = (parts[0].shape[0] - 4) // 33         # the pools' length
-            local_valid.append(torch.stack([p[33 * k].to(home) for p in parts]))
-            with trace.span("sweep.gather"):
-                s_, t_, w_, nv, slot_max, pair_mx, short = _reduce_pools(
-                    _all_gather(mesh, parts, home), k)
-            pool_s.append(s_)
-            pool_t.append(t_)
-            pool_w.append(w_)
-            # device-side counters, read once after the loop
-            rank_valid.append(nv)
-            chunk_valid.append(nv.sum(dtype=torch.int32))
-            chunk_slot_valid.append(slot_max)
-            pair_maxes.append(pair_mx)
-            shortfalls.append(short)
-            done_this_call = ci + 1 - start_chunk
-            if (stop_after_chunks is not None
-                    and done_this_call >= stop_after_chunks
-                    and ci + 1 < n_chunks):
-                stopped_at = ci + 1
-                if checkpoint_path:
-                    save_ckpt(ci + 1)
-                break
-            if (checkpoint_path and ci + 1 < n_chunks
-                    and done_this_call % max(1, checkpoint_every) == 0):
-                save_ckpt(ci + 1)
-
-    completed = stopped_at is None
-    h_unconv, h_nvs, h_slvs, h_pmx, h_short, h_rank, h_local = _to_host(
-        total(unconverged, resumed_unconverged),
-        torch.stack(chunk_valid) if chunk_valid else i32([0]),
-        torch.stack(chunk_slot_valid) if chunk_slot_valid else i32([0]),
-        running_pair_max(), total(shortfalls),
-        torch.stack(rank_valid).sum(0) if rank_valid else i32([0] * n_dev),
-        torch.stack(local_valid).sum(0) if local_valid else i32([0] * mesh.local),
-    )
-    n_unconverged = int(h_unconv)
-    if n_unconverged:
-        warn(
-            f"{n_unconverged} flood fills across the sharded sweep did not "
-            f"reach their BFS fixpoint in flood_fill_sweeps="
-            f"{cfg.flood_fill_sweeps} sweeps — segments under-fill",
-            n_unconverged=n_unconverged, sweeps=cfg.flood_fill_sweeps,
-        )
-    n_hyp_total = int(h_nvs.sum())
-    cap = cfg.score_compact_cap
-    slots_local = b_local * cfg.maximum_congruent_sets
-    slot_max = int(h_slvs.max())
-    if coarse_to_fine and cap and slots_local > cap and slot_max > cap:
-        warn(
-            f"a device's chunk shard produced {slot_max} "
-            f"congruent-valid hypothesis slots, over "
-            f"score_compact_cap={cap}; overflow was not fitted or scored "
-            f"— raise the cap for full recall",
-            n_valid=slot_max, cap=cap,
-        )
-    has_pair_max = bool(pair_maxes) or bool(resumed_pair_max)
-    pair_max = int(h_pmx)
-    if has_pair_max and pair_max > cfg.max_pairs_per_bin:
-        warn(
-            f"a PPF bin held {pair_max} pairs; only "
-            f"max_pairs_per_bin={cfg.max_pairs_per_bin} were matched — "
-            f"raise the cap for full recall",
-            pair_max=pair_max, cap=cfg.max_pairs_per_bin,
-        )
-    if int(h_short):
-        warn(
-            f"{int(h_short)} saturated bases kept fewer than "
-            f"maximum_congruent_sets={cfg.maximum_congruent_sets} sets "
-            f"after the exact-cone re-check — raise "
-            f"congruent_cone_oversample for full selection",
-            n_short=int(h_short),
-            oversample=cfg.congruent_cone_oversample,
-        )
-    if completed and checkpoint_path:
-        # the processes of a group may share the file
-        with contextlib.suppress(FileNotFoundError):
-            os.remove(checkpoint_path)
-    processed = (stopped_at if stopped_at is not None else n_chunks) * chunk
-    extra = {"devices": n_dev, "completed": completed,
-             "rank_hypotheses": [int(v) for v in h_rank],
-             "local_hypotheses": [int(v) for v in h_local]}
-    if has_pair_max:
-        extra["pair_count_max"] = pair_max
-    if not completed:
-        extra["next_chunk"] = stopped_at
-    return finish_sweep_pool(
-        torch.cat(pool_s), torch.cat(pool_t), torch.cat(pool_w), model, scene,
-        class_prob, cfg, total_bases=processed, n_hyp_total=n_hyp_total,
-        t_start=t_start - t_prev, verbose=verbose, event="stocs_sweep_sharded",
-        extra_stats=extra,
-    )
+        ranks = _on_ranks(mesh, model, scene, bits)
+        d2 = congruent.d2_test_implied(model.pos, cfg)
+        # the tail scores under the explicit prior, the baked weights unread
+        return _sweep_chunks(
+            step, model, scene, cfg_chunk, scene.class_prob,
+            total_bases=total_bases, chunk=chunk,
+            seed=cfg.seed if seed is None else seed, kp=keep_per_chunk,
+            t_start=t_start, verbose=verbose, checkpoint_path=checkpoint_path,
+            checkpoint_every=checkpoint_every, stop_after_chunks=stop_after_chunks,
+            coarse_to_fine=coarse_to_fine, devices=n_dev,
+            counts={"rank_hypotheses": zeros(n_dev), "local_hypotheses": zeros(mesh.local)},
+            baked_finish=False,
+        )[0]

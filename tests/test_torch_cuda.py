@@ -250,11 +250,10 @@ def test_scene_build_card_equal_cpu(tmp_path, monkeypatch, config):
 @pytest.mark.cuda
 def test_flood_and_instance_sampler_card_equal_cpu():
     """Flood fills (both modes, a batch of seeds) and the sequential
-    instance sampler (both ways of taking the cached-mask branch) give the
-    same masks, bases and decayed prior on the card as on the CPU: every
-    field bit for bit, over bases that cross a noise block, with every base
-    after the first replayed from CUDA graphs (three for "read", one for
-    "select") and as many flood fills as the CPU's eager loop."""
+    instance sampler give the same masks, bases and decayed prior on the
+    card as on the CPU: every field bit for bit, over bases that cross a
+    noise block, with every base after the first replayed from three CUDA
+    graphs and as many flood fills as the CPU's eager loop."""
     from model_matching_tpu_torch import flood, instance, rng
 
     dev = _card()
@@ -274,7 +273,7 @@ def test_flood_and_instance_sampler_card_equal_cpu():
     model, scene, cfg = synthetic_setup(device="cpu", edge=True)
     m_g, s_g = model.to(dev), scene.to(dev)
 
-    def sample(m, s, branch):
+    def sample(m, s):
         return instance.sample_instance_bases_stepwise(
             rng.PRNGKey(3), m.table, s.pos, s.normal, s.class_prob, s.edge_prob,
             s.pixel, s.valid, s.edge_free, num_bases=12, dispersion=0.9,
@@ -282,22 +281,21 @@ def test_flood_and_instance_sampler_card_equal_cpu():
             plane_threshold=cfg.plane_threshold,
             min_distance_base=cfg.min_distance_base,
             internal_angle_threshold=cfg.internal_angle_threshold,
-            flood_sweeps=8, block=5, cache_branch=branch)
+            flood_sweeps=8, block=5)
 
     names = ("instance.graph_captures", "instance.graph_replays", "instance.flood_fills")
 
-    def counted(m, s, branch):
+    def counted(m, s):
         before = [trace.total(k) for k in names]
-        out = sample(m, s, branch)
+        out = sample(m, s)
         return out, [trace.total(k) - b for k, b in zip(names, before)]
 
-    for branch, graphs in (("read", 3), ("select", 1)):
-        cpu, (c_captures, c_replays, c_fills) = counted(model, scene, branch)
-        assert bool(cpu.valid.any()) and c_captures == c_replays == 0
-        card, (captures, replays, fills) = counted(m_g, s_g, branch)
-        assert (captures, replays, fills) == (graphs, 11, c_fills), branch
-        for f in instance.InstanceSamples._fields:
-            assert torch.equal(getattr(cpu, f), getattr(card, f).cpu()), (branch, f)
+    cpu, (c_captures, c_replays, c_fills) = counted(model, scene)
+    assert bool(cpu.valid.any()) and c_captures == c_replays == 0
+    card, (captures, replays, fills) = counted(m_g, s_g)
+    assert (captures, replays, fills) == (3, 11, c_fills)
+    for f in instance.InstanceSamples._fields:
+        assert torch.equal(getattr(cpu, f), getattr(card, f).cpu()), f
 
 
 @pytest.mark.cuda

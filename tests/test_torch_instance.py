@@ -97,9 +97,8 @@ def test_sequential_sampler_equals_jax(wall, easy, scene, seed, sweeps):
 
 
 def test_one_loop_under_three_names(easy):
-    """The whole-scan name, the stepper at any block size and both ways of
-    taking the cached-mask branch give the same outputs; the input prior is
-    not written to."""
+    """The whole-scan name and the stepper at any block size give the same
+    outputs; the input prior is not written to."""
     _env, tenv = easy
     prior = tenv[3].clone()
     key = rng.PRNGKey(9)
@@ -108,7 +107,7 @@ def test_one_loop_under_three_names(easy):
     for other in (
         _torch_seq(tenv, key, 10, sweeps=8, block=64),
         _torch_seq(tenv, key, 10, sweeps=8, fn=tinst.sample_instance_bases),
-        _torch_seq(tenv, key, 10, sweeps=8, block=4, cache_branch="select"),
+        _torch_seq(tenv, key, 10, sweeps=8, block=4),
     ):
         for a, b in zip(ref, other):
             assert torch.equal(a, b)
@@ -116,8 +115,6 @@ def test_one_loop_under_three_names(easy):
     m = ref.seg_masks
     assert any(torch.equal(m[i], m[j]) and bool(m[i].any())
                for i in range(1, 11) for j in range(1, i))
-    with pytest.raises(ValueError, match="cache_branch"):
-        _torch_seq(tenv, key, 2, cache_branch="maybe")
 
 
 def test_cached_id_flat_read_equals_indexing():
@@ -137,22 +134,21 @@ def test_cached_id_flat_read_equals_indexing():
         assert torch.equal(tinst._cached_id(buf, seeds[:1]), buf[seeds[0, 0], seeds[0, 1]][None])
 
 
-@pytest.mark.parametrize("branch", ["read", "select"])
-def test_cpu_sampler_captures_no_graph(easy, branch):
+def test_cpu_sampler_captures_no_graph(easy):
     """On the CPU the sequential sampler runs every base eagerly: it
     captures and replays no CUDA graph, and counts one flood fill for each
-    base whose seed was unclaimed ("read") or for every base ("select")."""
+    base whose seed was unclaimed."""
     _env, tenv = easy
     names = ("instance.graph_captures", "instance.graph_replays", "instance.flood_fills")
     before = [trace.total(k) for k in names]
-    out = _torch_seq(tenv, rng.PRNGKey(9), 10, sweeps=8, block=3, cache_branch=branch)
+    out = _torch_seq(tenv, rng.PRNGKey(9), 10, sweeps=8, block=3)
     captures, replays, fills = (trace.total(k) - b for k, b in zip(names, before))
     assert captures == 0 and replays == 0
     m = out.seg_masks
     fresh = sum(not any(torch.equal(m[i], m[j]) for j in range(1, i))
                 for i in range(1, 11))
-    assert fills == (10 if branch == "select" else fresh)
-    assert fresh < 10          # the cache was hit, so the branches count apart
+    assert fills == fresh
+    assert fresh < 10          # the cache was hit: fewer fills than bases
 
 
 def test_exists_bits_words_and_draws(wall):

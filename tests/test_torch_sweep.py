@@ -12,6 +12,8 @@ differently in the two frameworks), as tests/test_torch_pipeline.py. A
 resumed sweep equals the uninterrupted one bit for bit."""
 
 import dataclasses
+import json
+import logging
 
 import jax.numpy as jnp
 import numpy as np
@@ -297,3 +299,99 @@ def test_config_fingerprint_equals_jax(kw):
             == jest._sweep_cfg_fingerprint(JConfig(**kw)))
     assert (port._sweep_cfg_fingerprint(TConfig(**kw))
             != port._sweep_cfg_fingerprint(TConfig(**{**kw, "voxel_size": 0.123})))
+
+
+# the four recall warnings of a sweep: a phrase of each text, and its fields
+RECALL_WARNINGS = {
+    "unconverged": ("flood fills across the", {"n_unconverged", "sweeps"}),
+    "overflow": ("congruent-valid hypothesis slots", {"n_valid", "cap"}),
+    "pairs": ("a PPF bin held", {"pair_max", "cap"}),
+    "shortfall": ("saturated bases kept fewer", {"n_short", "oversample"}),
+}
+
+
+@pytest.fixture(scope="module")
+def warned_sweeps():
+    """path -> (the recall warnings' fields by kind, stats) of an instance
+    sweep on the one-card path and over a mesh of two CPU ranks, under a
+    config that costs recall four ways: 256 pairs per bin below the scene's
+    largest bin; score_compact_cap 32 below a chunk's congruent-valid
+    slots; one flood-fill sweep on a serpentine edge map (walls across
+    every fourth row, each open at alternate ends), whose fills need
+    several; and congruent_cone_oversample 1. The synthetic bins hold at
+    most ~1,400 pairs, below the 4,096-pair tier that takes the dense gate
+    and its exact-cone re-check, so the fixture lowers that tier's floor
+    to 256 pairs: only there can a base keep fewer sets than it matched."""
+    from model_matching_tpu_torch import congruent
+    from model_matching_tpu_torch.parallel.dcn_worker import edge_scene
+    from model_matching_tpu_torch.parallel.sharding import make_mesh, run_sweep_sharded
+    from model_matching_tpu_torch.utils.log import get_logger
+
+    model, scene, cfg = synthetic_setup(num_model=128, num_scene=512, max_pairs=256,
+                                        max_congruent=64, device="cpu")
+    scene = edge_scene(scene, seed=17)
+    h, w = scene.edge_free.shape
+    serpentine = torch.ones(h, w, dtype=torch.bool)
+    for i, row in enumerate(range(3, h, 4)):
+        serpentine[row] = False
+        serpentine[row, w - 2 if i % 2 == 0 else 1] = True
+    scene = dataclasses.replace(scene, edge_free=serpentine)
+    cfg = dataclasses.replace(cfg, score_compact_cap=32, flood_fill_sweeps=1,
+                              congruent_cone_oversample=1)
+    kw = dict(total_bases=32, chunk=16, keep_per_chunk=16, seed=3, verbose=False)
+    runs = {
+        "one-card": lambda: port.StocsEstimator(model, scene, cfg).run_sweep(**kw),
+        "sharded": lambda: run_sweep_sharded(make_mesh(["cpu"] * 2), model, scene,
+                                             cfg, **kw),
+    }
+    messages = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            if record.levelno == logging.WARNING:
+                messages.append(record.getMessage())
+
+    handler = Keep()
+    get_logger().addHandler(handler)
+    out = {}
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(congruent, "_PALLAS_MIN_CAP", 256)
+            for path, run in runs.items():
+                del messages[:]
+                stats = run()[4]
+                fields = {}
+                for msg in messages:
+                    text, _, tail = msg.rpartition(" {")
+                    for kind, (phrase, _names) in RECALL_WARNINGS.items():
+                        if phrase in text:
+                            assert kind not in fields, msg
+                            fields[kind] = json.loads("{" + tail)
+                out[path] = fields, stats
+    finally:
+        get_logger().removeHandler(handler)
+    return out, cfg
+
+
+@pytest.mark.parametrize("path", ["one-card", "sharded"])
+def test_sweep_recall_warnings(warned_sweeps, path):
+    """Both sweeps warn of each of the four recall costs once, with the
+    same structured fields; the sampled bases are the same on both paths,
+    so the pair maximum and the unconverged fills agree, and the stats
+    carry the pair maximum the warning names."""
+    out, cfg = warned_sweeps
+    fields, stats = out[path]
+    assert set(fields) == set(RECALL_WARNINGS)
+    for kind, (_phrase, names) in RECALL_WARNINGS.items():
+        assert set(fields[kind]) == names, kind
+    assert fields["unconverged"]["sweeps"] == cfg.flood_fill_sweeps == 1
+    assert fields["overflow"]["cap"] == cfg.score_compact_cap
+    assert fields["overflow"]["n_valid"] > cfg.score_compact_cap
+    assert fields["pairs"]["cap"] == cfg.max_pairs_per_bin
+    assert fields["pairs"]["pair_max"] > cfg.max_pairs_per_bin
+    assert fields["shortfall"]["oversample"] == 1 and fields["shortfall"]["n_short"] > 0
+    assert stats["pair_count_max"] == fields["pairs"]["pair_max"]
+    assert stats["completed"] is True and stats["total_bases"] == 32
+    other = out["sharded" if path == "one-card" else "one-card"][0]
+    for kind, name in (("pairs", "pair_max"), ("unconverged", "n_unconverged")):
+        assert fields[kind][name] == other[kind][name] > 0, kind
