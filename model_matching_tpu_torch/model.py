@@ -74,7 +74,8 @@ def load_model_pack(model_ply_path: str, table_path: str, capacity: int,
     for the CPU). standardize=True pads the tables to common shape floors
     and buckets the probe bounds and the cloud size, as the JAX package
     does for its serve and batch paths; single-object runs keep exact-size
-    tables."""
+    tables. The table goes to `device` first, so a standardizing rebuild
+    runs there."""
     dev = require(device)
     pos, normal, rgb = ply.read_ply_cloud(model_ply_path, scale=1.0)
     if normal is None:
@@ -84,7 +85,7 @@ def load_model_pack(model_ply_path: str, table_path: str, capacity: int,
         raise ValueError(
             f"model has {n} points > capacity {capacity}; raise max_model_points"
         )
-    table, _meta = load_ppf_table(table_path)
+    table = load_ppf_table(table_path)[0].to(dev)
     if standardize:
         pairs_size = max(_PAIRS_FLOOR, 1 << int(np.ceil(np.log2(
             max(table.pairs.shape[0], 2)))))
@@ -124,15 +125,13 @@ def load_model_pack(model_ply_path: str, table_path: str, capacity: int,
 
     valid = torch.zeros(padded, dtype=torch.bool)
     valid[:n] = True
-    pos_padded = pad(pos)
     model = ModelPack(
-        pos=pos_padded,
+        pos=pad(pos),
         normal=pad(normal),
         rgb=pad(rgb if rgb is not None else np.full((n, 3), -1.0, np.float32)),
         valid=valid,
         centroid=torch.from_numpy(centroid.astype(np.float32)),
         table=table,
-        # built from the padded positions; pairs only reference real points
-        pair_ep=build_pair_ep(pos_padded, table.pairs),
-    )
-    return model.to(dev)
+    ).to(dev)
+    # built from the padded positions; pairs only reference real points
+    return dataclasses.replace(model, pair_ep=build_pair_ep(model.pos, table.pairs))

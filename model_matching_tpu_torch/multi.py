@@ -39,7 +39,7 @@ def align_models(models: Sequence[ModelPack]) -> List[ModelPack]:
     common size, or dropped if any model lacks them), the clouds padded
     with zero rows to the longest, the endpoint rows rebuilt from the
     aligned (padded) pair array, the probe bounds equalized. The packs stay
-    on their device."""
+    on their device, and the tables are rebuilt there."""
     exist = max(int(m.table.exist_keys.shape[0]) for m in models)
     bins = max(int(m.table.bin_keys.shape[0]) for m in models)
     pairs = max(int(m.table.pairs.shape[0]) for m in models)
@@ -51,7 +51,7 @@ def align_models(models: Sequence[ModelPack]) -> List[ModelPack]:
 
     out = []
     for m in models:
-        t = resize_table(m.table, exist, bins, pairs, direct_size=direct).to(m.pos.device)
+        t = resize_table(m.table, exist, bins, pairs, direct_size=direct)
 
         def pad(a):
             if a.shape[0] == mcap:

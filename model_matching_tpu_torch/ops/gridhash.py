@@ -100,19 +100,19 @@ def _place(dest: torch.Tensor, values: torch.Tensor, count: int) -> torch.Tensor
     return values.new_empty(count + 1).scatter_(0, dest, values)[:count]
 
 
-def _open_table(keys: torch.Tensor, extra=()):
+def _open_table(keys: torch.Tensor, extra=(), min_size: int = 0):
     """ppf_table._build_open_table on the device of the sorted unique keys:
-    the same power-of-two linear-probe table (indices into `keys`, -1 =
-    empty) and max_probes. Each round every key still waiting probes its
-    slot, and the lowest-indexed one takes an open slot, as
-    np.unique(return_index=True) picks it there; a key placed in round r
-    has moved r slots, so the rounds are the largest move + 1. The state is
-    read every _TABLE_ROUNDS rounds, the first time together with the
-    device values `extra`. Returns (table, max_probes, the values of
-    `extra`)."""
+    the same power-of-two linear-probe table of at least 4 * len(keys), 16
+    and `min_size` slots (indices into `keys`, -1 = empty) and max_probes.
+    Each round every key still waiting probes its slot, and the
+    lowest-indexed one takes an open slot, as np.unique(return_index=True)
+    picks it there; a key placed in round r has moved r slots, so the
+    rounds are the largest move + 1. The state is read every _TABLE_ROUNDS
+    rounds, the first time together with the device values `extra`.
+    Returns (table, max_probes, the values of `extra`)."""
     dev = keys.device
     u = keys.shape[0]
-    size = 1 << int(np.ceil(np.log2(max(4 * u, 16))))
+    size = 1 << int(np.ceil(np.log2(max(4 * u, 16, min_size))))
     mask = size - 1
     home = _mix32(keys) & mask
     slot = home

@@ -12,7 +12,8 @@ gather.
 The build is the JAX package's: the all-pairs keys and the fan-out keys
 come from the host C++ helpers (native.py) when they build, from the numpy
 paths otherwise. It returns torch tensors on the CPU, which ``PPFTable.to``
-moves to a device.
+moves to a device. ``resize_table`` rebuilds a table's layouts in torch on
+the device the table is on.
 """
 
 from __future__ import annotations
@@ -430,6 +431,25 @@ def _direct_from_tables(
     )
 
 
+def _build_direct(bin_keys: torch.Tensor, offsets: torch.Tensor,
+                  counts: torch.Tensor, exist_keys: torch.Tensor, rot_disc: int,
+                  size: int):
+    """_build_direct_np's twins at `size` entries in torch on the keys'
+    device, from unique keys: bin_direct [S, 2] int32 and exist_direct
+    [S/32] int64 (uint32 words). Keys outside the dense space land in a
+    dropped last row / word."""
+    bidx = dense_index(bin_keys, rot_disc, size).long()
+    bin_direct = bin_keys.new_zeros((size + 1, 2))
+    bin_direct[torch.where(bidx >= 0, bidx, size)] = torch.stack([offsets, counts], 1)
+    eidx = dense_index(exist_keys, rot_disc, size).long()
+    words = torch.where(eidx >= 0, eidx >> 5, size // 32)
+    # the dense index is injective on unique keys, so the bits of a word
+    # are distinct and their sum is numpy's bitwise_or.at
+    exist_direct = eidx.new_zeros(size // 32 + 1).index_add_(
+        0, words, torch.where(eidx >= 0, 1 << (eidx & 31), 0))
+    return bin_direct[:size], exist_direct[:size // 32]
+
+
 def resize_table(
     table: PPFTable, exist_size: int, bin_size: int, num_pairs: int,
     direct_size: int | None = 0,
@@ -437,49 +457,46 @@ def resize_table(
     """Rebuild a table's open-addressing layouts at the given power-of-two
     sizes and pad the pair array, so several models share identical shapes.
     The stored keys/CSR content is unchanged; `direct_size` None drops the
-    direct-mapped twins. Returns a table on the CPU."""
-    trace.count("host_reads", 5)        # the four arrays here and the pairs below
-    exist_keys = table.exist_keys.cpu().numpy()
-    bin_keys = table.bin_keys.cpu().numpy()
-    bin_offset = table.bin_offset.cpu().numpy()
-    bin_count = table.bin_count.cpu().numpy()
+    direct-mapped twins. Built in torch on the table's device, equal bit
+    for bit to the numpy build (`_build_open_table`, `_build_direct_np`).
+    Host reads: the two key counts, then each table's state every
+    `_TABLE_ROUNDS` insertion rounds (the first with the largest dense
+    index); no array leaves the device. Counts `ppf_table.resizes`."""
+    from .ops.gridhash import _open_table, _read
 
-    ek = np.sort(exist_keys[exist_keys >= 0])
-    et_idx, e_probes = _build_open_table(ek, min_size=exist_size)
-    new_exist = np.full(et_idx.shape[0], -1, np.int32)
-    occ = et_idx >= 0
-    new_exist[occ] = ek[et_idx[occ]]
+    trace.count("ppf_table.resizes")
+    ex, bx = table.exist_keys, table.bin_keys
+    n_exist, n_bin = _read((ex >= 0).sum(), (bx >= 0).sum())
+    # sorted unique keys: the empty slots (-1) sort first
+    ek = torch.sort(ex).values[ex.shape[0] - n_exist:]
+    bk, order = (t[bx.shape[0] - n_bin:] for t in torch.sort(bx))
+    # the largest dense index of either key set (an empty slot gives -1)
+    no_cap = torch.iinfo(torch.int32).max
+    kmax = torch.maximum(dense_index(ex, table.rot_disc, no_cap).max(),
+                         dense_index(bx, table.rot_disc, no_cap).max())
+    et_idx, e_probes, (kmax,) = _open_table(ek, (kmax,), min_size=exist_size)
+    bt_idx, b_probes, _ = _open_table(bk, min_size=bin_size)
 
-    bocc = bin_keys >= 0
-    order = np.argsort(bin_keys[bocc])
-    bk = bin_keys[bocc][order]
-    bo = bin_offset[bocc][order]
-    bc = bin_count[bocc][order]
-    bt_idx, b_probes = _build_open_table(bk, min_size=bin_size)
-    nb_keys = np.full(bt_idx.shape[0], -1, np.int32)
-    nb_off = np.zeros(bt_idx.shape[0], np.int32)
-    nb_cnt = np.zeros(bt_idx.shape[0], np.int32)
-    occ2 = bt_idx >= 0
-    nb_keys[occ2] = bk[bt_idx[occ2]]
-    nb_off[occ2] = bo[bt_idx[occ2]]
-    nb_cnt[occ2] = bc[bt_idx[occ2]]
+    def fill(idx, values, empty):
+        return torch.where(idx >= 0, values[torch.clamp(idx, min=0)], empty)
 
-    pairs = table.pairs.cpu().numpy()
+    bo, bc = table.bin_offset[order], table.bin_count[order]
+    pairs = table.pairs
     if pairs.shape[0] < num_pairs:
-        pairs = np.concatenate(
-            [pairs, np.zeros((num_pairs - pairs.shape[0], 2), np.int32)]
-        )
+        pairs = torch.cat([pairs, pairs.new_zeros((num_pairs - pairs.shape[0], 2))])
 
-    if direct_size is None:
-        bin_direct, exist_direct = None, None
-    else:
-        bin_direct, exist_direct = _direct_from_tables(
-            nb_keys, nb_off, nb_cnt, new_exist, table.rot_disc,
-            min_size=direct_size,
-        )
-    return _table_from_arrays(new_exist, nb_keys, nb_off, nb_cnt, pairs,
-                              table.tr_disc, table.rot_disc, e_probes, b_probes,
-                              bin_direct, exist_direct)
+    bin_direct = exist_direct = None
+    if direct_size is not None and _dense_radix(table.rot_disc) <= 64 and kmax >= 0:
+        size = max(1 << int(np.ceil(np.log2(max(kmax + 1, 32)))), direct_size)
+        if size <= DIRECT_CAP:
+            bin_direct, exist_direct = _build_direct(bk, bo, bc, ek, table.rot_disc, size)
+    return PPFTable(
+        exist_keys=fill(et_idx, ek, -1), bin_keys=fill(bt_idx, bk, -1),
+        bin_offset=fill(bt_idx, bo, 0), bin_count=fill(bt_idx, bc, 0), pairs=pairs,
+        tr_disc=table.tr_disc, rot_disc=table.rot_disc,
+        exist_max_probes=int(e_probes), bin_max_probes=int(b_probes),
+        bin_direct=bin_direct, exist_direct=exist_direct,
+    )
 
 
 # ---------------------------------------------------------------------------

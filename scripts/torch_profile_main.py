@@ -12,7 +12,8 @@ bases (run_sweep) on the same scene without the edge map; --path multi runs
 multi.match_all_objects for the three objects of the 640x480 three-object
 scene (synthetic.write_synthetic_multi_scene, class path, ycb preset,
 --bases bases, packs standardized as stocs-multi loads them) and first
-times its host-side align_models alone. Each runs once to
+times align_models alone (its table rebuilds run on the card, so the clock
+stops after a synchronize). Each runs once to
 warm up, then once under torch.profiler, on a fresh estimator (the instance
 path leaves its decayed prior on the estimator). Prints the per-phase wall
 times, the number of device kernels, the device-busy share of the profiled
@@ -126,7 +127,7 @@ def main():
 def _multi_from_files(dev, bases):
     """The 640x480 three-object scene, its three preprocessed models loaded
     as stocs-multi loads them, and the wall time of align_models alone
-    (warm, median of 3, printed)."""
+    to the end of its device work (warm, median of 3, printed)."""
     import dataclasses
 
     import torch

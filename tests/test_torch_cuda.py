@@ -8,8 +8,8 @@ has the card and no jax (the suite's conftest.py imports jax, hence
 It holds the dense-gate and row-gather kernels to their plain versions
 bit for bit, the estimator on the card to the estimator on the CPU with
 every base in a dense congruent tier, and scene ingest (the grids and
-the field built on the card too) and model preprocessing on the card to
-the same on the CPU."""
+the field built on the card too), model preprocessing and align_models'
+table rebuilds on the card to the same on the CPU."""
 
 import dataclasses
 import os
@@ -245,6 +245,54 @@ def test_scene_build_card_equal_cpu(tmp_path, monkeypatch, config):
                 assert a.device.type == "cuda" and torch.equal(a.cpu(), b), (name, f.name)
             else:
                 assert a == b, (name, f.name)
+
+
+@pytest.mark.cuda
+def test_align_models_card_equal_cpu(tmp_path, monkeypatch):
+    """align_models over the ycb.multi3 cell's three shells, loaded
+    standardized, rebuilds every table on the card equal bit for bit to
+    the CPU's rebuild (arrays and both probe bounds), reading under 64 KB
+    to the host for the call."""
+    import json
+
+    from model_matching_tpu_torch.config import PreprocessConfig
+    from model_matching_tpu_torch.model import load_model_pack
+    from model_matching_tpu_torch.multi import align_models
+    from model_matching_tpu_torch.preprocess import preprocess_model
+
+    dev = _card()
+    bench = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                         "benchmark")
+    monkeypatch.syspath_prepend(bench)
+    import frames
+
+    with open(os.path.join(bench, "configs", "ycb.json")) as f:
+        spec = json.load(f)
+    frames.write_models(str(tmp_path), "shells3", spec["scene"]["source_points"])
+    packs = {"cpu": [], "card": []}
+    for name in frames.object_names("shells3"):
+        d = os.path.join(str(tmp_path), "models", name)
+        paths = (os.path.join(d, "model_search.ply"), os.path.join(d, "ppf_table.npz"))
+        preprocess_model(os.path.join(d, "textured_vertices.ply"), *paths,
+                         PreprocessConfig(**spec["preprocess"]), verbose=False, device=dev)
+        for side, where in (("cpu", "cpu"), ("card", dev)):
+            packs[side].append(load_model_pack(*paths, spec["match"]["max_model_points"],
+                                               standardize=True, device=where))
+    cpu = align_models(packs["cpu"])
+    align_models(packs["card"])                                   # warm
+    bytes0, resizes0 = trace.total("host_read_bytes"), trace.total("ppf_table.resizes")
+    card = align_models(packs["card"])
+    assert trace.total("host_read_bytes") - bytes0 < 64 << 10
+    assert trace.total("ppf_table.resizes") - resizes0 == 3
+    for c, g in zip(cpu, card):
+        for f in ("pos", "pair_ep"):
+            assert torch.equal(getattr(g, f).cpu(), getattr(c, f)), f
+        for f in ("exist_keys", "bin_keys", "bin_offset", "bin_count", "pairs",
+                  "bin_direct", "exist_direct"):
+            a = getattr(g.table, f)
+            assert a.device.type == "cuda" and torch.equal(a.cpu(), getattr(c.table, f)), f
+        for f in ("exist_max_probes", "bin_max_probes"):
+            assert getattr(g.table, f) == getattr(c.table, f), f
 
 
 @pytest.mark.cuda

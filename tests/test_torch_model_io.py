@@ -1,7 +1,8 @@
 """PPF-table persistence and model loading of the port against the JAX
 package, on the CPU: the .npz format read both ways with equal arrays,
-resize_table and load_model_pack(standardize=True) giving the JAX
-package's shapes, probe buckets and contents. Tables come from the seeded
+resize_table (built in torch, with no bulk host read) and
+load_model_pack(standardize=True) giving the JAX package's shapes, probe
+buckets and contents. Tables come from the seeded
 synthetic model (synthetic.synthetic_arrays). Everything here is integer
 or copied data, so every comparison is exact."""
 
@@ -68,6 +69,31 @@ def test_resize_table_matches_jax(model_files, direct_size):
     j = jtab.resize_table(jt, 1 << 14, 1 << 13, 70000, direct_size=direct_size)
     _same_table(t, j)
     assert t.exist_keys.shape[0] >= 1 << 14 and t.pairs.shape[0] == 70000
+
+
+@pytest.mark.parametrize("direct_size", [None, ttab.DIRECT_CAP * 2])
+@pytest.mark.parametrize("sizes", ["below", "equal", "above"])
+def test_resize_table_reads_only_sizes(model_files, sizes, direct_size):
+    """resize_table rebuilds on the table's device with no bulk read (a few
+    counted scalar reads), counts one `ppf_table.resizes` a call, and gives
+    the JAX package's arrays, with sizes below, equal to and above the
+    table's own and the direct twins dropped or refused past DIRECT_CAP."""
+    from model_matching_tpu_torch.utils import trace
+
+    _d, table, jt = model_files
+    own = (table.exist_keys.shape[0], table.bin_keys.shape[0], table.pairs.shape[0])
+    args = {"below": (1 << 10, 1 << 10, 1000), "equal": own,
+            "above": (own[0] * 2, own[1] * 2, own[2] + 5000)}[sizes]
+    rec = trace.recorder()
+    bytes0, resizes0 = rec.total("host_read_bytes"), rec.total("ppf_table.resizes")
+    t = ttab.resize_table(table, *args, direct_size=direct_size)
+    assert rec.total("host_read_bytes") - bytes0 < 4 << 10
+    assert rec.total("ppf_table.resizes") - resizes0 == 1
+    _same_table(t, jtab.resize_table(jt, *args, direct_size=direct_size))
+    assert t.bin_direct is None and t.exist_direct is None
+    for f in _FIELDS[:5]:
+        assert getattr(t, f).device == getattr(table, f).device, f
+    assert t.exist_keys.shape[0] >= args[0] and t.pairs.shape[0] == max(args[2], own[2])
 
 
 @pytest.mark.parametrize("standardize", [False, True])

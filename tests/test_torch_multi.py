@@ -7,7 +7,8 @@ to keep the CPU time down) and its edge-mapped variant, handed to both
 packages as the same packs (convert.py), and the three-object 160x120 RGB-D
 scene of synthetic.write_synthetic_multi_scene.
 
-Required: `align_models` gives the JAX package's arrays exactly;
+Required: `align_models` gives the JAX package's arrays exactly, and packs
+that already share one shape their own arrays;
 `match_all_objects` gives its hypothesis counts, best LCP within 1e-5 and
 poses within 1e-4 on the class and the edge path; an object alone equals
 its row of a two-object call bit for bit, and zeroing the other object's
@@ -106,6 +107,37 @@ def test_align_models_equals_jax(worlds):
     # one shape for every object
     assert tal[0].table.pairs.shape == tal[1].table.pairs.shape
     assert tal[0].pos.shape == tal[1].pos.shape
+
+
+def test_align_models_same_shapes_equals_rebuild():
+    """Three packs that already share one shape (tables rebuilt at common
+    sizes, probe bounds bucketed up as standardize=True leaves them) come
+    back with their own arrays and the rebuilt, tighter probe bounds."""
+    from model_matching_tpu_torch.model import ModelPack, build_pair_ep
+    from model_matching_tpu_torch.ppf_table import build_ppf_table, resize_table
+    from model_matching_tpu_torch.synthetic import synthetic_arrays
+
+    tables, clouds = [], []
+    for seed in (6, 7, 8):
+        mpos, mnrm, *_ = synthetic_arrays(200, 300, seed=seed)
+        tables.append(build_ppf_table(mpos, mnrm, 5, 5)[0])
+        clouds.append(torch.from_numpy(np.concatenate([mpos, np.zeros((56, 3), np.float32)])))
+    sizes = [max(getattr(t, f).shape[0] for t in tables)
+             for f in ("exist_keys", "bin_keys", "pairs", "bin_direct")]
+    rebuilt = [resize_table(t, *sizes[:3], direct_size=sizes[3]) for t in tables]
+    packs = [ModelPack(pos=pos, normal=pos, rgb=pos, valid=torch.arange(256) < 200,
+                       centroid=torch.zeros(3), pair_ep=build_pair_ep(pos, t.pairs),
+                       table=dataclasses.replace(t, exist_max_probes=16, bin_max_probes=16))
+             for pos, t in zip(clouds, rebuilt)]
+    aligned = tmulti.align_models(packs)
+    for a, p in zip(aligned, packs):
+        for f in ("pos", "normal", "rgb", "valid", "centroid", "pair_ep"):
+            assert torch.equal(getattr(a, f), getattr(p, f)), f
+        for f in ("exist_keys", "bin_keys", "bin_offset", "bin_count", "pairs",
+                  "bin_direct", "exist_direct"):
+            assert torch.equal(getattr(a.table, f), getattr(p.table, f)), f
+        assert a.table.exist_max_probes == max(r.exist_max_probes for r in rebuilt) < 16
+        assert a.table.bin_max_probes == max(r.bin_max_probes for r in rebuilt) < 16
 
 
 @pytest.mark.parametrize("path", ["class", "edge"])

@@ -182,3 +182,26 @@ def test_tensor_builders_equal_numpy_builders(scene, case, kind, kw, monkeypatch
         idx = got.rows[:, 6][got.rows[:, 7] != (-1.0 if baked else 0.0)]
         assert not bool(torch.isin(idx, torch.arange(len(pos) - 8, len(pos)).float()).any())
         assert bool(torch.isin(idx, torch.arange(2, 10).float()).any())
+
+
+@pytest.mark.parametrize("case", ["sparse", "min_size", "wrapping_cluster"])
+def test_open_table_equals_build_open_table(case):
+    """gridhash._open_table equals ppf_table._build_open_table (table and
+    probe bound) on sorted unique keys: spread keys, a `min_size` above 4x
+    the keys, and keys whose home slots crowd the table's end, so runs wrap
+    past slot 0 and the insertion takes several read rounds."""
+    from model_matching_tpu_torch.ppf_table import _build_open_table, _mix32_np
+
+    rng = np.random.default_rng(5)
+    cand = np.unique(rng.integers(0, 1 << 31, 200_000).astype(np.int32))
+    if case == "wrapping_cluster":
+        keys = cand[(_mix32_np(cand) & 255) >= 244][:64]    # 64 keys, 12 home slots of 256
+    else:
+        keys = np.sort(rng.choice(cand, 300, replace=False))
+    min_size = 1 << 12 if case == "min_size" else 0
+    want, want_probes = _build_open_table(keys, min_size=min_size)
+    got, probes, _ = tgh._open_table(torch.from_numpy(keys), min_size=min_size)
+    _eq(want, got)
+    assert probes == want_probes
+    if case == "wrapping_cluster":
+        assert want_probes > 2 * tgh._TABLE_ROUNDS and want[0] >= 0
