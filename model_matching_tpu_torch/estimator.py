@@ -443,7 +443,7 @@ def _world_of(centered, scene_centroid, model_centroid):
 def finish_sweep_pool(pool_s, pool_t, pool_w, model: ModelPack,
                       scene: ScenePack, class_prob, cfg: MatchConfig,
                       total_bases: int, n_hyp_total: int, t_start: float,
-                      verbose: bool = True, event: str = "stocs_sweep",
+                      chunks: int, verbose: bool = True, event: str = "stocs_sweep",
                       extra_stats: Optional[dict] = None):
     """Tail of a sweep: pool argmax, ICP polish of the winner, greedy
     clustering of the pooled hypotheses (pruned against the raw pool best:
@@ -451,15 +451,20 @@ def finish_sweep_pool(pool_s, pool_t, pool_w, model: ModelPack,
     stats and logging, in the span `sweep.finish`. Three transfers: argmax
     group, refine group, cluster group.
 
+    The pool holds `chunks` chunks of equal length in chunk order; stats
+    name the chunk of the pool's argmax (`best_chunk`) and whether the ICP
+    polish replaced its entry (`best_refined`).
+
     Returns (best_lcp, best_world_transform, clustered_transforms,
     clustered_lcp, stats)."""
     with trace.span("sweep.finish"):
         bi = torch.argmax(pool_s)
-        h_best, h_w, h_sc, h_mc = _to_host(pool_s[bi], pool_w[bi], scene.centroid,
-                                           model.centroid)
+        h_bi, h_best, h_w, h_sc, h_mc = _to_host(bi, pool_s[bi], pool_w[bi],
+                                                 scene.centroid, model.centroid)
         best_lcp = float(h_best)
         best_w = h_w.astype(np.float32)
         raw_best = best_lcp
+        refined_won = False
 
         if cfg.refine_best_pose and best_lcp > 0:
             refined, new_lcp = _phase_refine(pool_t[bi], model, scene, class_prob, cfg)
@@ -467,6 +472,7 @@ def finish_sweep_pool(pool_s, pool_t, pool_w, model: ModelPack,
             if float(r_lcp) >= best_lcp:
                 best_w = _world_of(r_refined.astype(np.float32), h_sc, h_mc)
                 best_lcp = float(r_lcp)
+                refined_won = True
         elapsed = time.perf_counter() - t_start
 
         cl_w, cl_s = _cluster_pool(pool_w, pool_s, pool_s > 0, raw_best, cfg)
@@ -478,6 +484,8 @@ def finish_sweep_pool(pool_s, pool_t, pool_w, model: ModelPack,
             "hypotheses_per_sec": n_hyp_total / elapsed if elapsed else 0.0,
             # the pool's own best, before the ICP polish: the first cluster
             "pool_best_lcp": raw_best,
+            "best_chunk": int(h_bi) // (pool_s.shape[0] // chunks),
+            "best_refined": refined_won,
             **(extra_stats or {}),
         }
         log_event(event, best_lcp=best_lcp, clusters=len(cl_s), **stats)
@@ -530,7 +538,16 @@ def _sweep_chunks(step, model: ModelPack, scene: ScenePack, cfg: MatchConfig,
     the chunk's config (number_of_bases = chunk). Spans: `sweep.chunk`
     around each chunk; the caller's `sweep.run` around the call.
 
-    Returns (finish_sweep_pool's tuple, the prior the last chunk left)."""
+    On the instance path a running `torch.where` on each chunk's pool
+    maximum keeps, on the device, the prior of the chunk that holds the
+    pool's best entry so far (strictly greater replaces it, as the pool's
+    argmax keeps the first of equal entries); the class path's prior is
+    the one it was given.
+
+    Returns (finish_sweep_pool's tuple, the prior the last chunk left, the
+    prior that scored the returned best LCP: the last chunk's where the
+    ICP polish replaced the pool's best, else the best entry's chunk's,
+    None where that chunk ran before a resume)."""
     dev = scene.pos.device
     use_instance = scene.has_edge
     name = "sharded sweep" if devices else "sweep"
@@ -546,6 +563,7 @@ def _sweep_chunks(step, model: ModelPack, scene: ScenePack, cfg: MatchConfig,
     chunk_valid, chunk_slot_valid = [], []
     pair_maxes, shortfalls, unconverged = [], [], []
     chunk_counts = {k: [] for k in counts}
+    win_s = win_prior = None   # the best pool entry so far, its chunk's prior
     start_chunk = 0
     resumed_unconverged = 0
     resumed_pair_max = 0
@@ -566,6 +584,8 @@ def _sweep_chunks(step, model: ModelPack, scene: ScenePack, cfg: MatchConfig,
             )
         if start_chunk:
             pool_s.append(state["pool_s"].reshape(-1))
+            if use_instance:
+                win_s, win_prior = pool_s[0].max(), prior
             pool_t.append(state["pool_t"].reshape(-1, 4, 4))
             pool_w.append(state["pool_w"].reshape(-1, 4, 4))
             # the per-chunk counts survive the round trip so that the
@@ -616,6 +636,14 @@ def _sweep_chunks(step, model: ModelPack, scene: ScenePack, cfg: MatchConfig,
         with trace.span("sweep.chunk"):
             c = step(rng.fold_in(key0, ci), prior)
             prior = c.prior
+            if use_instance:
+                top = c.pool_s.max()
+                if win_s is None:
+                    win_s, win_prior = top, prior
+                else:
+                    better = top > win_s
+                    win_s = torch.where(better, top, win_s)
+                    win_prior = torch.where(better, prior, win_prior)
             pool_s.append(c.pool_s)
             pool_t.append(c.pool_t)
             pool_w.append(c.pool_w)
@@ -703,14 +731,22 @@ def _sweep_chunks(step, model: ModelPack, scene: ScenePack, cfg: MatchConfig,
         extra["pair_count_max"] = pair_max
     if not completed:
         extra["next_chunk"] = stopped_at
-    return finish_sweep_pool(
+    out = finish_sweep_pool(
         torch.cat(pool_s), torch.cat(pool_t), torch.cat(pool_w), model, scene,
         _score_prob(scene, prior) if baked_finish else prior, cfg,
         total_bases=processed, n_hyp_total=n_hyp_total,
         # resumed time counts: finish measures now - t_start
-        t_start=t_start - t_prev, verbose=verbose, event=event,
-        extra_stats=extra,
-    ), prior
+        t_start=t_start - t_prev, chunks=processed // chunk, verbose=verbose,
+        event=event, extra_stats=extra,
+    )
+    stats = out[4]
+    if stats["best_refined"] or not use_instance:
+        scored = prior
+    elif stats["best_chunk"] < start_chunk:
+        scored = None
+    else:
+        scored = win_prior
+    return out, prior, scored
 
 
 class StocsEstimator:
@@ -732,6 +768,8 @@ class StocsEstimator:
             # mutable class-probability state: the instance path decays
             # it, and scoring reads the decayed values
             self.class_prob = scene.class_prob
+            # the prior that scored the last sweep's best LCP (run_sweep)
+            self.best_prior = None
             self.seg_masks = None
             self.last_poses = None
             self._exists_bits = None
@@ -947,10 +985,21 @@ class StocsEstimator:
         reflects every base of chunks 0..ci), and each chunk is scored with
         its sampling-time prior. The decayed prior stays on the estimator
         afterwards, as after run(). Each chunk's segment masks are dropped.
+        The decay makes each chunk's scores smaller than the chunk's before
+        it (every segment's weight falls by `sample_dispersion` each time a
+        base lands in it), so on a bin of like boxes the first chunk holds
+        the pool's best entry, and later chunks only add to the clusters.
 
         Returns (best_lcp, best_world_transform, clustered_transforms,
         clustered_lcp, stats). A `total_bases` that is not a multiple of
-        `chunk` is rounded up; stats report the bases processed.
+        `chunk` is rounded up; stats report the bases processed, the chunk
+        whose pool entry is the pool's best (`best_chunk`) and whether the
+        ICP polish replaced it (`best_refined`). `best_prior` on the
+        estimator is then the prior that scored `best_lcp`, on the device:
+        the polish's (the last chunk's) where it replaced the pool's best,
+        else the best chunk's; the scene's on the class path; None where
+        the best chunk ran before a resume from a checkpoint, which records
+        only the last prior.
 
         keep_per_chunk None -> cfg.sweep_keep_per_chunk; 0 -> pool every
         scored hypothesis slot.
@@ -969,7 +1018,9 @@ class StocsEstimator:
         once after the loop, and once per checkpoint.
 
         Spans: `sweep.run` around the call, `sweep.chunk` around each
-        chunk, `sweep.finish` around the tail (finish_sweep_pool)."""
+        chunk, and inside it on the instance path `sweep.sample` around the
+        sampler (it ends on a synchronize), `sweep.finish` around the tail
+        (finish_sweep_pool)."""
         cfg = dataclasses.replace(self.cfg, number_of_bases=chunk)
         if keep_per_chunk is None:
             keep_per_chunk = cfg.sweep_keep_per_chunk
@@ -979,9 +1030,10 @@ class StocsEstimator:
             k_sample, k_cong = rng.split(key)
             unconverged = None
             if use_instance:
-                inst = _phase_sample_instance(
-                    k_sample, self.model.table, self.scene, prior, cfg, chunk,
-                )
+                with trace.span("sweep.sample", sync=self.scene.pos.device):
+                    inst = _phase_sample_instance(
+                        k_sample, self.model.table, self.scene, prior, cfg, chunk,
+                    )
                 bases = sampling.SampledBases(
                     inst.indices, inst.invariant1, inst.invariant2, inst.valid
                 )
@@ -1009,7 +1061,7 @@ class StocsEstimator:
         with trace.span("sweep.run"):
             t_start = time.perf_counter()
             bits = None if use_instance else self.exists_bits()
-            out, self.class_prob = _sweep_chunks(
+            out, self.class_prob, self.best_prior = _sweep_chunks(
                 step, self.model, self.scene, cfg, self.class_prob,
                 total_bases=total_bases, chunk=chunk,
                 seed=cfg.seed if seed is None else seed, kp=keep_per_chunk,

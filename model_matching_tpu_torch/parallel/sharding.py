@@ -385,7 +385,8 @@ def run_sweep_sharded(
     rank-major, and the pooled winners are ICP-polished and clustered
     (estimator.finish_sweep_pool). Same return shape as
     StocsEstimator.run_sweep: (best_lcp, best_world_transform,
-    clustered_transforms, clustered_lcp, stats), stats with `devices`,
+    clustered_transforms, clustered_lcp, stats), stats with `best_chunk`
+    and `best_refined` as run_sweep's, `devices`,
     `rank_hypotheses` (each global rank's valid hypotheses as the pools'
     reduction took them in) and `local_hypotheses` (this process's ranks'
     own counts, before the gather), both over the chunks of this call. A
@@ -413,7 +414,8 @@ def run_sweep_sharded(
     `sweep.chunk` around each chunk, `sweep.finish` around the tail; inside
     a chunk `sweep.gather` (the gather through the pool's reduction: across
     processes it ends on a host copy, so it holds the wait for the slowest
-    process) and, on the instance path, `sweep.broadcast`."""
+    process) and, on the instance path, `sweep.sample` (the sampler, ending
+    on a synchronize) and `sweep.broadcast`."""
     use_instance = scene.has_edge
     n_dev = mesh.size
     if chunk % n_dev:
@@ -434,8 +436,9 @@ def run_sweep_sharded(
         if use_instance:
             # the sequential sampler on the whole chunk, as the one-device
             # sweep runs it: the same bases and decayed prior
-            inst = _phase_sample_instance(k_sample, model.table, scene, prior,
-                                          cfg_chunk, chunk)
+            with trace.span("sweep.sample", sync=home):
+                inst = _phase_sample_instance(k_sample, model.table, scene, prior,
+                                              cfg_chunk, chunk)
             with trace.span("sweep.broadcast"):
                 chunk_state = _broadcast0(mesh, (
                     inst.indices, inst.invariant1, inst.invariant2, inst.valid,

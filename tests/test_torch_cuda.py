@@ -9,7 +9,9 @@ It holds the dense-gate and row-gather kernels to their plain versions
 bit for bit, the estimator on the card to the estimator on the CPU with
 every base in a dense congruent tier, and scene ingest (the grids and
 the field built on the card too), model preprocessing and align_models'
-table rebuilds on the card to the same on the CPU."""
+table rebuilds on the card to the same on the CPU; and it runs the check
+that a sweep names the prior that scored its answer
+(tests/sweep_prior.py) on the card."""
 
 import dataclasses
 import os
@@ -24,6 +26,7 @@ from model_matching_tpu_torch.ops import dense_gate as tdg
 from model_matching_tpu_torch.ops import row_gather as trg
 from model_matching_tpu_torch.synthetic import GATE_CELL_CASES, gate_cells, synthetic_setup
 from model_matching_tpu_torch.utils import trace
+from sweep_prior import CASES, check_sweep_names_its_prior
 
 MASK = 0x7FFFFFFF & ~((1 << 15) - 1)
 MARKER = 1 << 14
@@ -384,6 +387,13 @@ def test_instance_run_and_sweep_card_equal_cpu(tmp_path):
     assert abs(gpu[0] - cpu[0]) <= 1e-5 and gpu[4]["hypotheses"] == cpu[4]["hypotheses"]
     assert abs(gpu[1] - cpu[1]).max() <= 1e-4 and len(gpu[3]) == len(cpu[3])
     assert trace.total("k1.launches") >= gates
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path,dispersion,seed", list(CASES))
+def test_sweep_names_the_prior_that_scored_it_on_the_card(path, dispersion, seed, tmp_path):
+    """tests/sweep_prior.py's check on the card, with its CPU numbers."""
+    check_sweep_names_its_prior(_card(), path, dispersion, seed, tmp_path)
 
 
 @pytest.mark.cuda

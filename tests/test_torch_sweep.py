@@ -27,6 +27,7 @@ from model_matching_tpu_torch import convert
 from model_matching_tpu_torch import estimator as port
 from model_matching_tpu_torch.config import MatchConfig as TConfig
 from model_matching_tpu_torch.synthetic import synthetic_edge_arrays, synthetic_setup
+from sweep_prior import CASES, check_sweep_names_its_prior
 
 CHUNK = 16
 
@@ -395,3 +396,19 @@ def test_sweep_recall_warnings(warned_sweeps, path):
     other = out["sharded" if path == "one-card" else "one-card"][0]
     for kind, name in (("pairs", "pair_max"), ("unconverged", "n_unconverged")):
         assert fields[kind][name] == other[kind][name] > 0, kind
+
+
+@pytest.mark.parametrize("path,dispersion,seed", list(CASES))
+def test_sweep_names_the_prior_that_scored_it(path, dispersion, seed, tmp_path):
+    """The sweep names the chunk of its best entry, whether the ICP polish
+    replaced it, and the prior that scored the LCP it returns
+    (tests/sweep_prior.py)."""
+    check_sweep_names_its_prior("cpu", path, dispersion, seed, tmp_path)
+
+
+@pytest.mark.parametrize("path", ["one-card", "sharded"])
+def test_both_sweeps_name_their_best_chunk(warned_sweeps, path):
+    """The sharded sweep's stats name the best chunk and the polish's
+    outcome as the one-card sweep's do."""
+    stats = warned_sweeps[0][path][1]
+    assert stats["best_chunk"] in (0, 1) and stats["best_refined"] in (False, True)
