@@ -72,8 +72,9 @@ Phases, in order; any failure exits nonzero and prints no result:
              on an edge pixel, the count of unconverged fills printed, and
              the sampler timed warm. Every sampler call, the command's
              included, must replay 99 of its 100 bases from the 3 CUDA
-             graphs it captures; sample_bases seconds and the counters are
-             printed. The recorded launches
+             graphs it captures and launch the base-rounds kernels twice a
+             base (`base_rounds.launches`); sample_bases seconds and the
+             counters are printed. The recorded launches
              are held against the plain versions bit for bit (the dense
              gate on the first two and the last base of a launch). Then at 160x120, 16 bases, a 1 cm
              voxel, 4,096 points, 2,048 pairs per bin and 64 sets per base
@@ -181,8 +182,8 @@ Phases, in order; any failure exits nonzero and prints no result:
              pose on the scene and on one of the boxes; every dense-gate
              launch equal to the plain version (first two and last base)
              and timed beside its bound; the sampler's 100 bases, 99 of
-             them replayed from its 3 CUDA graphs (sample_bases seconds and
-             the counters printed); two top-tier bases alone (one-base
+             them replayed from its 3 CUDA graphs, with 200 base-rounds
+             launches (sample_bases seconds and the counters printed); two top-tier bases alone (one-base
              launches run blocks of 112 rows, which straddle a live and a
              dead 256-row P tile) equal too; every row gather equal to its
              plain version; at full width the sampler on the CPU equal to
@@ -758,18 +759,21 @@ def _kernel_launches(before=None):
 
 def _graph_counts(before=None):
     """The instance sampler's CUDA graphs captured and bases replayed (the
-    `instance.graph_captures` and `instance.graph_replays` counters), since
-    the counts `before` if given."""
+    `instance.graph_captures` and `instance.graph_replays` counters) and
+    its kernel's launches (`base_rounds.launches`), since the counts
+    `before` if given."""
     from model_matching_tpu_torch.utils import trace
 
     now = {k: trace.total(f"instance.graph_{k}") for k in ("captures", "replays")}
+    now["launches"] = trace.total("base_rounds.launches")
     return now if before is None else {k: v - before[k] for k, v in now.items()}
 
 
 def _check_graph_counts(counts, num_bases, captures, where):
     """A sequential sampler call on the card replays every base after the
-    first from `captures` graphs."""
-    want = {"captures": captures, "replays": num_bases - 1}
+    first from `captures` graphs, and launches the base-rounds kernel
+    twice a base (eagerly or inside a replayed graph)."""
+    want = {"captures": captures, "replays": num_bases - 1, "launches": 2 * num_bases}
     if counts != want:
         raise AssertionError(f"{where}: graph counters {counts}, expected {want}")
 

@@ -11,8 +11,9 @@ pixel (a [B + 1, H, W] buffer, written row by row in place).
 
 The cross-base dependence makes the path sequential: one Python loop over
 bases with the decayed probabilities, the previous segment, the claim
-buffer and the mask cache as state, on the card replayed as CUDA graphs
-base after base. PyTorch compiles no trace, so the JAX
+buffer and the mask cache as state, on the card hand-written kernels for
+each of a base's two parts around the fill (ops/base_rounds), replayed
+as CUDA graphs base after base. PyTorch compiles no trace, so the JAX
 package's whole-scan sampler and its host-driven stepper are one loop
 here (``sample_instance_bases`` and ``sample_instance_bases_stepwise``
 give the same outputs); the Gumbel noise of a block of bases is made in
@@ -28,8 +29,8 @@ from typing import NamedTuple
 import torch
 
 from . import flood, rng, sampling
-from .ops import fmath, invariants
-from .ops.fp import sqrt_rn
+from .ops import base_rounds, fmath, invariants
+from .ops.base_rounds import pixel_distance
 from .ppf_table import PPFTable
 from .utils import trace
 
@@ -49,14 +50,6 @@ class InstanceSamples(NamedTuple):
 _draw_rows = sampling._categorical_rows_with_noise
 
 
-def _pixel_distance(pixel, seed_rc):
-    """[K, N] float32 euclidean distance of every point's pixel to each
-    seed pixel; the squares are exact integers, the root correctly
-    rounded."""
-    d = (pixel[None, :, :] - seed_rc[:, None, :]).to(torch.float32)
-    return sqrt_rn(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1])
-
-
 def _base_keys(key, num_bases):
     """[B, 4, 2] round keys: split(key, B), each split in 4."""
     return rng.split(rng.split(key, num_bases), 4)
@@ -72,14 +65,6 @@ def _finish(pos, raws, oks, class_prob, masks, fills) -> InstanceSamples:
         invariant2=inv2, valid=oks, class_prob=class_prob, seg_masks=masks,
         fill_converged=fills,
     )
-
-
-def _cached_id(seg_buffer, seed_rc):
-    """[K] int32: the claim (base number, 0 for none) of each of the [K, 2]
-    seed pixels in the [H, W] claim buffer, gathered at row * W + col
-    (indexing by 0-dim device tensors would read them on the host)."""
-    flat = seed_rc[:, 0].long() * seg_buffer.shape[1] + seed_rc[:, 1].long()
-    return seg_buffer.reshape(-1)[flat]
 
 
 @functools.lru_cache(maxsize=None)
@@ -160,91 +145,34 @@ def sample_instance_bases_stepwise(
 
     A base runs in parts (`pre`: the decay, round 1, its segment's radius
     and the claim; the fill; `post`: rounds 2-4 and the output rows) that
-    update state allocated once, the base number included, in place and
-    without a host read. On a CUDA device with fixed flood sweeps every
-    base after the first replays CUDA graphs of the parts, captured once
-    a call after the first base has run them eagerly and made the
+    update state allocated once (ops/base_rounds.Rounds), the base number
+    included, in place and without a host read. On a CUDA device `pre` and
+    `post` are each one launch of ops/base_rounds' kernels, bit-equal to
+    their plain torch versions, which the CPU runs. With fixed flood sweeps
+    every base after the first replays CUDA graphs of the parts, captured
+    once a call after the first base has run them eagerly and made the
     constants they read: the same kernels, so the same bits, at a fraction
     of the launch cost. A fill that sweeps to its fixpoint reads the host
     every sweep, so without fixed sweeps every base runs eagerly."""
     dev = pos.device
-    h, w = edge_free.shape
     n = pos.shape[0]
-    arange_n = torch.arange(n, dtype=torch.int32, device=dev)
-    disp = torch.tensor(dispersion, dtype=torch.float32, device=dev)
-    prow, pcol = pixel[:, 0].long(), pixel[:, 1].long()
-
-    class_prob = class_prob0.clone()
-    prev_in = torch.zeros(n, dtype=torch.bool, device=dev)   # in the previous segment
-    seg_buffer = torch.zeros((h, w), dtype=torch.int32, device=dev)  # claims
-    masks = torch.zeros((num_bases + 1, h, w), dtype=torch.bool, device=dev)
-    seg = torch.zeros((h, w), dtype=torch.bool, device=dev)  # this base's segment
-    fill_ok = torch.zeros(1, dtype=torch.bool, device=dev)
-    noise = torch.empty((min(block, num_bases), 4, 1, n), dtype=torch.float32,
-                        device=dev)
-    row = torch.zeros(1, dtype=torch.int64, device=dev)      # base number - 1
-    raws = torch.zeros((num_bases, 4), dtype=torch.int32, device=dev)
-    oks = torch.zeros(num_bases, dtype=torch.bool, device=dev)
-    fills = torch.zeros(num_bases, dtype=torch.bool, device=dev)
-    r1 = {}                                                  # what pre hands on
-
-    def pre():
-        # cross-base dispersion decay inside the previous segment; this
-        # mutates the carried class_prob, one float32 multiply a base
-        class_prob.copy_(torch.where(prev_in & valid, class_prob * disp, class_prob))
-
-        probs = torch.where(valid, class_prob, 0.0)
-        probs = flood.prune_edge_points(probs, edge_prob)[None, :]
-        log_w = sampling.log_weights(probs)      # once for the four draws
-        g = noise.index_select(0, row % block)[0]            # [4, 1, N]
-        idx1, ok1 = _draw_rows(g[0], probs, log_w)
-
-        # round-1 PPF mask and the largest feasible pixel distance
-        exists1 = sampling._pairwise_exists(
-            table, pos, normal, idx1, tr_disc, rot_disc, exists_bits)
-        probs = torch.where(exists1 & (arange_n != idx1[:, None]), probs, 0.0)
-        seed_rc = pixel[idx1.long()]                         # [1, 2]
-        pix_d = _pixel_distance(pixel, seed_rc)
-        r1.update(
-            probs=probs, log_w=log_w, g=g, idx1=idx1, ok1=ok1, seed_rc=seed_rc,
-            max_pix_dist=torch.where(probs > 0, pix_d, 0.0).amax(dim=1),
-            cached_id=_cached_id(seg_buffer, seed_rc))       # [1]
+    s = base_rounds.Rounds(
+        table, pos, normal, class_prob0, edge_prob, pixel, valid, edge_free.shape,
+        num_bases, block, dispersion, tr_disc, rot_disc, plane_threshold,
+        min_distance_base, internal_angle_threshold, exists_bits)
 
     def fill():                                 # the seed unclaimed
         m, conv = flood.flood_fill(
-            r1["seed_rc"], edge_free, r1["max_pix_dist"], max_iters=flood_max_iters,
+            s.seed_rc, edge_free, s.max_pix_dist, max_iters=flood_max_iters,
             fixed_sweeps=flood_sweeps, return_converged=True)
         m = m[0]
-        seg.copy_(m)
-        fill_ok.copy_(conv)
-        seg_buffer.copy_(torch.where(m, (row + 1).to(torch.int32), seg_buffer))
+        s.seg.copy_(m)
+        s.fill_ok.copy_(conv)
+        s.seg_buffer.copy_(torch.where(m, (s.row + 1).to(torch.int32), s.seg_buffer))
 
-    def post():
-        masks.index_copy_(0, row + 1, seg[None])
-        prev_in.copy_(seg[prow, pcol])
-        g, log_w, idx1 = r1["g"], r1["log_w"], r1["idx1"]
-        probs = torch.where(prev_in[None, :], r1["probs"], 0.0)
-
-        idx2, ok2 = _draw_rows(g[1], probs, log_w)
-        keep2 = sampling.round2_keep_mask(
-            table, pos, normal, idx1, idx2, tr_disc, rot_disc,
-            internal_angle_threshold, exists_bits)
-        probs = torch.where(keep2, probs, 0.0)
-
-        idx3, ok3 = _draw_rows(g[2], probs, log_w)
-        keep3 = sampling.round3_keep_mask(
-            table, pos, normal, idx1, idx2, idx3, tr_disc, rot_disc,
-            plane_threshold, min_distance_base, exists_bits)
-        probs = torch.where(keep3, probs, 0.0)
-
-        idx4, ok4 = _draw_rows(g[3], probs, log_w)
-
-        raws.index_copy_(0, row, torch.cat([idx1, idx2, idx3, idx4])[None])
-        oks.index_copy_(0, row, r1["ok1"] & ok2 & ok3 & ok4)
-        fills.index_copy_(0, row, fill_ok)
-        row.add_(1)
-
-    parts = dict(pre=pre, fill=fill, post=post)
+    # looked up at each call, so that a test can swap in the plain parts
+    parts = dict(pre=lambda: base_rounds.base_pre(s), fill=fill,
+                 post=lambda: base_rounds.base_post(s))
     capture = dev.type == "cuda" and flood_sweeps is not None and num_bases > 1
 
     def run(name):                              # eagerly, until captured
@@ -255,24 +183,25 @@ def sample_instance_bases_stepwise(
     for b in range(num_bases):
         if b % block == 0:
             block_noise = rng.gumbel_rows(keys[b:b + block].reshape(-1, 2), n, dev)
-            noise[:block_noise.shape[0] // 4].copy_(block_noise.reshape(-1, 4, 1, n))
+            s.noise[:block_noise.shape[0] // 4].copy_(block_noise.reshape(-1, 4, 1, n))
         if b == 1 and capture:
             run = graphs = _Graphs(dev, parts)
         if graphs is not None:
             trace.count("instance.graph_replays")
+            base_rounds.count_replay(s)
         run("pre")
         # segmentation mask: the cached segment if the seed pixel was
         # claimed by an earlier base, else a flood fill
         trace.count("host_reads")
-        hit = int(r1["cached_id"])                           # host read
+        hit = int(s.cached_id)                               # host read
         if hit:
-            seg.copy_(masks[hit])
-            fill_ok.fill_(True)
+            s.seg.copy_(s.masks[hit])
+            s.fill_ok.fill_(True)
         else:
             trace.count("instance.flood_fills")
             run("fill")
         run("post")
-    return _finish(pos, raws, oks, class_prob, masks, fills)
+    return _finish(pos, s.raws, s.oks, s.class_prob, s.masks, s.fills)
 
 
 def sample_instance_bases(
@@ -374,7 +303,7 @@ def sample_instance_bases_blocked(
         probs = torch.where(exists1 & (arange_n[None, :] != idx1[:, None]),
                             probs0, 0.0)
         seed_rc = pixel[idx1.long()]                          # [K, 2]
-        pix_d = _pixel_distance(pixel, seed_rc)
+        pix_d = pixel_distance(pixel, seed_rc)
         max_pix_dist = torch.where(probs > 0, pix_d, 0.0).amax(dim=1)
 
         trace.count("instance.flood_fills", k_block)

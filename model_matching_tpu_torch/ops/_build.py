@@ -55,6 +55,13 @@ def _declare(lib):
     lib.mm_dense_gate_rows.restype = ctypes.c_int
     lib.mm_row_gather.argtypes = [p, p, i, p, ctypes.c_longlong, i, p]
     lib.mm_row_gather.restype = ctypes.c_int
+    for fn in (lib.mm_base_pre, lib.mm_base_post):
+        fn.argtypes = [p, p]
+        fn.restype = ctypes.c_int
+    lib.mm_base_rounds_fmath.argtypes = [p, p, p, ctypes.c_longlong, p]
+    lib.mm_base_rounds_fmath.restype = ctypes.c_int
+    lib.mm_base_rounds_scratch_bytes.argtypes = []
+    lib.mm_base_rounds_scratch_bytes.restype = ctypes.c_longlong
     return lib
 
 

@@ -433,3 +433,198 @@ def test_spans_on_the_card_profilers_clock():
     last = max(kernels, key=lambda e: e.start_ns() + e.duration_ns())
     # the span ended after the device's last kernel of it
     assert trace.to_profiler_ns(spans["probe3"].t1) >= last.start_ns() + last.duration_ns() - 1_000_000
+
+
+# ------------------------------------------- the instance sampler's kernel
+
+def _sample_kwargs(cfg, bases, dispersion, block):
+    return dict(num_bases=bases, dispersion=dispersion, tr_disc=cfg.ppf_tr_discretization,
+                rot_disc=cfg.ppf_rot_discretization, plane_threshold=cfg.plane_threshold,
+                min_distance_base=cfg.min_distance_base,
+                internal_angle_threshold=cfg.internal_angle_threshold, block=block)
+
+
+@pytest.fixture(scope="module")
+def packed_frame(tmp_path_factory):
+    """A full-size packed frame of benchmark/frames.py (layout 3) and the
+    box's unstandardized pack, on the card, and the preset's config;
+    with the same frame at 24,576 lanes (N above 16,384, where the
+    kernels' grid stops growing and a thread takes several points)."""
+    import json
+    import sys
+
+    from model_matching_tpu_torch.config import PreprocessConfig
+    from model_matching_tpu_torch.model import load_model_pack
+    from model_matching_tpu_torch.preprocess import preprocess_model
+    from model_matching_tpu_torch.scene import load_scene
+
+    dev = _card()
+    bench = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                         "benchmark")
+    sys.path.insert(0, bench)
+    try:
+        import frames
+        import loops
+    finally:
+        sys.path.remove(bench)
+    root = str(tmp_path_factory.mktemp("packed"))
+    with open(os.path.join(bench, "configs", "packed.json")) as f:
+        spec = json.load(f)
+    cfg = loops.match_config(spec["match"])
+    fr = frames.write_frame(root, "bin", 3, 0, cfg.camera.as_tuple(), cfg.image_width,
+                            cfg.image_height, cfg.depth_scale, cfg.probability_scale, True)
+    frames.write_models(root, "bin", spec["scene"]["source_points"])
+    d = os.path.join(root, "models", "box")
+    preprocess_model(os.path.join(d, "textured_vertices.ply"),
+                     os.path.join(d, "model_search.ply"), os.path.join(d, "ppf_table.npz"),
+                     PreprocessConfig(**spec["preprocess"]), verbose=False, device=dev)
+    model = load_model_pack(os.path.join(d, "model_search.ply"),
+                            os.path.join(d, "ppf_table.npz"), cfg.max_model_points,
+                            standardize=False, device=dev)
+    rgb, depth, probs, edge = fr.paths(["box"])
+    scene = load_scene(rgb, depth, probs[0], edge, cfg, device=dev)
+    wide = load_scene(rgb, depth, probs[0], edge,
+                      dataclasses.replace(cfg, max_scene_points=24576), device=dev)
+    return model, scene, wide, cfg
+
+
+def _instance_case(name, packed_frame):
+    """(model, scene, cfg, table, exists_bits, dispersion) of a named case."""
+    from model_matching_tpu_torch import sampling
+
+    if name.startswith("packed"):
+        model, scene, wide, cfg = packed_frame
+        if name == "packed-wide":
+            scene = wide
+    else:
+        model, scene, cfg = synthetic_setup(device=_card(), edge=True)
+    table, bits, disp = model.table, None, 0.9
+    if name.endswith("probe"):
+        table = dataclasses.replace(table, exist_direct=None, bin_direct=None)
+    if name.endswith("bits"):
+        bits = sampling.build_exists_bits(table, scene.pos, scene.normal,
+                                          cfg.ppf_tr_discretization,
+                                          cfg.ppf_rot_discretization)
+    if name.endswith("disp1"):
+        disp = 1.0
+    return model, scene, cfg, table, bits, disp
+
+
+INSTANCE_CASES = ("synthetic", "synthetic-disp1", "synthetic-bits", "synthetic-probe",
+                  "packed", "packed-disp1", "packed-probe", "packed-bits", "packed-wide")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", INSTANCE_CASES)
+def test_base_rounds_kernel_equals_plain_parts_step_by_step(case, packed_frame):
+    """The kernel's `pre` and `post` against the plain torch parts on the
+    same card tensors, base by base (a flood fill or a cached mask in
+    between, as the sampler does): after every part the whole state, the
+    decayed prior, the weights, the draws, `max_pix_dist`, the claim, the
+    masks and the output rows, equal bit for bit."""
+    from model_matching_tpu_torch import flood, instance, rng
+    from model_matching_tpu_torch.ops import base_rounds
+
+    model, scene, cfg, table, bits, disp = _instance_case(case, packed_frame)
+    bases, block = 24, 10
+    kw = _sample_kwargs(cfg, bases, disp, block)
+    n = scene.pos.shape[0]
+    if case == "packed-wide":
+        assert n > 16384
+
+    def rounds():
+        return base_rounds.Rounds(
+            table, scene.pos, scene.normal, scene.class_prob, scene.edge_prob, scene.pixel,
+            scene.valid, scene.edge_free.shape, bases, block, disp, kw["tr_disc"],
+            kw["rot_disc"], kw["plane_threshold"], kw["min_distance_base"],
+            kw["internal_angle_threshold"], bits)
+
+    kern, plain = rounds(), rounds()
+    state = [k for k, v in vars(plain).items() if isinstance(v, torch.Tensor)]
+    keys = instance._base_keys(rng.PRNGKey(7), bases)
+    launches = trace.total("base_rounds.launches")
+    drawn = 0
+    for b in range(bases):
+        if b % block == 0:
+            noise = rng.gumbel_rows(keys[b:b + block].reshape(-1, 2), n, scene.pos.device)
+            for s in (kern, plain):
+                s.noise[:noise.shape[0] // 4].copy_(noise.reshape(-1, 4, 1, n))
+        base_rounds.base_pre(kern)
+        base_rounds.base_pre_reference(plain)
+        bad = [k for k in state if not torch.equal(getattr(kern, k), getattr(plain, k))]
+        assert not bad, (b, "pre", bad)
+        hit = int(plain.cached_id)
+        for s in (kern, plain):
+            if hit:
+                s.seg.copy_(s.masks[hit])
+                s.fill_ok.fill_(True)
+            else:
+                m, conv = flood.flood_fill(s.seed_rc, scene.edge_free, s.max_pix_dist,
+                                           fixed_sweeps=8, return_converged=True)
+                s.seg.copy_(m[0])
+                s.fill_ok.copy_(conv)
+                s.seg_buffer.copy_(torch.where(m[0], (s.row + 1).to(torch.int32),
+                                               s.seg_buffer))
+        base_rounds.base_post(kern)
+        base_rounds.base_post_reference(plain)
+        bad = [k for k in state if not torch.equal(getattr(kern, k), getattr(plain, k))]
+        assert not bad, (b, "post", bad)
+        drawn += float(plain.max_pix_dist) > 0
+    assert trace.total("base_rounds.launches") - launches == 2 * bases
+    assert bool(plain.oks.any()) and drawn > 0 and int(plain.row) == bases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ("synthetic", "synthetic-bits", "packed", "packed-probe"))
+def test_instance_sampler_kernel_path_equals_plain_path(case, packed_frame, monkeypatch):
+    """sample_instance_bases_stepwise on the card with the kernel against
+    the same with the plain torch parts swapped in, both replayed from
+    CUDA graphs: every InstanceSamples field bit for bit, three graphs and
+    one replay a base after the first either way, and `base_rounds.launches`
+    up by 2 a base with the kernel, by none with the plain parts."""
+    from model_matching_tpu_torch import instance, rng
+    from model_matching_tpu_torch.ops import base_rounds
+
+    model, scene, cfg, table, bits, disp = _instance_case(case, packed_frame)
+    bases = 40
+
+    def sample():
+        names = ("instance.graph_captures", "instance.graph_replays",
+                 "base_rounds.launches")
+        before = [trace.total(k) for k in names]
+        out = instance.sample_instance_bases_stepwise(
+            rng.PRNGKey(5), table, scene.pos, scene.normal, scene.class_prob,
+            scene.edge_prob, scene.pixel, scene.valid, scene.edge_free,
+            exists_bits=bits, flood_sweeps=8, **_sample_kwargs(cfg, bases, disp, 16))
+        return out, [trace.total(k) - b for k, b in zip(names, before)]
+
+    kern, counts = sample()
+    assert counts == [3, bases - 1, 2 * bases]
+    monkeypatch.setattr(base_rounds, "base_pre", base_rounds.base_pre_reference)
+    monkeypatch.setattr(base_rounds, "base_post", base_rounds.base_post_reference)
+    plain, counts = sample()
+    assert counts == [3, bases - 1, 0]
+    for f in instance.InstanceSamples._fields:
+        assert torch.equal(getattr(kern, f), getattr(plain, f)), f
+    assert bool(plain.valid.any())
+
+
+@pytest.mark.cuda
+def test_base_rounds_log_and_acos_equal_fmath_on_every_float():
+    """The kernel's copies of ops/fmath.py's log and acos against fmath on
+    the card, on every float32 bit pattern in chunks: the same bits
+    wherever fmath's result is a number, and NaN where it is NaN (what a
+    NaN's payload holds decides nothing)."""
+    from model_matching_tpu_torch.ops import base_rounds, fmath
+
+    dev = _card()
+    chunk = 1 << 26
+    for start in range(-(1 << 31), 1 << 31, chunk):
+        x = torch.arange(start, start + chunk, dtype=torch.int64, device=dev)
+        x = x.to(torch.int32).view(torch.float32)
+        got_log, got_acos = base_rounds.kernel_fmath(x)
+        for got, want in ((got_log, fmath.log(x)), (got_acos, fmath.acos(x))):
+            nan = torch.isnan(want)
+            assert torch.equal(torch.isnan(got), nan), start
+            assert torch.equal(torch.where(nan, 0, got.view(torch.int32)),
+                               torch.where(nan, 0, want.view(torch.int32))), start

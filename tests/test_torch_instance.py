@@ -19,6 +19,7 @@ from model_matching_tpu import sampling as jsamp
 from model_matching_tpu_torch import convert, rng
 from model_matching_tpu_torch import instance as tinst
 from model_matching_tpu_torch import sampling as tsamp
+from model_matching_tpu_torch.ops import base_rounds
 from model_matching_tpu_torch.utils import trace
 from tests.test_instance import build_easy_scene, build_scene
 
@@ -127,11 +128,11 @@ def test_cached_id_flat_read_equals_indexing():
         rc = np.stack([g.integers(0, h, 40), g.integers(0, w, 40)], axis=1)
         rc = np.concatenate([rc, [[0, 0], [h - 1, w - 1], [0, w - 1], [h - 1, 0]]])
         seeds = torch.from_numpy(rc.astype(np.int32))
-        got = tinst._cached_id(buf, seeds)
+        got = base_rounds.cached_id(buf, seeds)
         assert got.dtype == torch.int32 and got.shape == (seeds.shape[0],)
         want = torch.stack([buf[r, c] for r, c in seeds.long()])
         assert torch.equal(got, want)
-        assert torch.equal(tinst._cached_id(buf, seeds[:1]), buf[seeds[0, 0], seeds[0, 1]][None])
+        assert torch.equal(base_rounds.cached_id(buf, seeds[:1]), buf[seeds[0, 0], seeds[0, 1]][None])
 
 
 def test_cpu_sampler_captures_no_graph(easy):
@@ -149,6 +150,51 @@ def test_cpu_sampler_captures_no_graph(easy):
                 for i in range(1, 11))
     assert fills == fresh
     assert fresh < 10          # the cache was hit: fewer fills than bases
+
+
+@pytest.mark.parametrize("seed", [9, 3])
+@pytest.mark.parametrize("parts", ["plain", "wrapper"])
+def test_base_parts_step_by_step_equal_the_sampler(easy, seed, parts):
+    """ops/base_rounds' parts, driven base by base with the flood fill or
+    the cached mask between them as the sampler drives them, reproduce
+    sample_instance_bases_stepwise's outputs: the plain versions, and the
+    wrapper, which takes them for CPU tensors (no kernel launch counted)."""
+    from model_matching_tpu_torch import flood
+
+    _env, tenv = easy
+    table, pos, nrm, prob, edge_prob, pixel, valid, edge_free = tenv
+    bases, block, n = 10, 4, pos.shape[0]
+    want = _torch_seq(tenv, rng.PRNGKey(seed), bases, sweeps=8, block=block)
+    s = base_rounds.Rounds(
+        table, pos, nrm, prob, edge_prob, pixel, valid, edge_free.shape, bases, block,
+        0.9, KW["tr_disc"], KW["rot_disc"], KW["plane_threshold"],
+        KW["min_distance_base"], KW["internal_angle_threshold"])
+    pre, post = ((base_rounds.base_pre_reference, base_rounds.base_post_reference)
+                 if parts == "plain" else (base_rounds.base_pre, base_rounds.base_post))
+    keys = tinst._base_keys(rng.PRNGKey(seed), bases)
+    launches = trace.total("base_rounds.launches")
+    for b in range(bases):
+        if b % block == 0:
+            noise = rng.gumbel_rows(keys[b:b + block].reshape(-1, 2), n)
+            s.noise[:noise.shape[0] // 4].copy_(noise.reshape(-1, 4, 1, n))
+        pre(s)
+        hit = int(s.cached_id)
+        if hit:
+            s.seg.copy_(s.masks[hit])
+            s.fill_ok.fill_(True)
+        else:
+            m, conv = flood.flood_fill(s.seed_rc, edge_free, s.max_pix_dist,
+                                       max_iters=KW["flood_max_iters"], fixed_sweeps=8,
+                                       return_converged=True)
+            s.seg.copy_(m[0])
+            s.fill_ok.copy_(conv)
+            s.seg_buffer.copy_(torch.where(m[0], (s.row + 1).to(torch.int32), s.seg_buffer))
+        post(s)
+    got = tinst._finish(pos, s.raws, s.oks, s.class_prob, s.masks, s.fills)
+    for f in tinst.InstanceSamples._fields:
+        assert torch.equal(getattr(want, f), getattr(got, f)), f
+    assert bool(want.valid.any()) and int(s.row) == bases
+    assert trace.total("base_rounds.launches") == launches
 
 
 def test_exists_bits_words_and_draws(wall):
